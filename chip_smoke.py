@@ -5,22 +5,40 @@
 
 Phases (any failure ends the run with a nonzero exit, before the last line):
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: nvcc compiles h263_tpu_torch/csrc/*.cu (and g++ the native
-     header prep of h263_tpu) from the checkout;
+  2. build: nvcc compiles h263_tpu_torch/csrc/*.cu (one process per source,
+     all at once) and g++ the port's native header prep, from the checkout;
   3. IDCT kernel vs its plain PyTorch version on the card, 1024*6*396 random
      blocks of every class plus the FMA block (must give 28): exact;
   4. automaton kernel vs its plain version on the card at the main path's
      shapes, 1024 CIF lanes (every frame of the 16 corpora), one lane in
      eight truncated and one in eight byte-flipped: equal dense, MVs, INTER
      and status on every lane;
-  5. the main path: DeviceFrontendDecoder(1024, 352, 288, device="cuda")
-     over an 8-frame GOP (1 I + 7 P) of 16 synthetic corpora cycled over the
-     lanes, plus lanes on the FMA sequence (pixel 156) and on the ffmpeg CIF
-     fixture (vs its golden luma); 18 sampled lanes' planes and RGBA equal
-     the numpy reference decoder exactly; both kernels' launch counters rise.
+  5. the single-frame path: DeviceFrontendDecoder(1024, 352, 288) over an
+     8-frame GOP (1 I + 7 P) of 16 synthetic corpora cycled over the lanes,
+     plus lanes on the FMA sequence (pixel 156) and on the ffmpeg CIF fixture
+     (vs its golden luma); sampled lanes' planes and RGBA equal the reference
+     digests; every kernel's launch counter rises;
+  6. deblock kernel vs its plain version on the card: the three CIF planes
+     at S=1024 and an odd-sized 177x145 plane pair, strengths 0-12 and apply
+     flags mixed: exact;
+  7. YUV->RGBA kernel vs its plain version, the same way: exact;
+  8. the pool path, this slice's main path: StreamPool(frontend="device")
+     over an 8-frame GOP with a CIF bucket of 1024 streams and a QCIF bucket
+     of 64; after frame 3, 32 CIF streams leave and 32 join (recycled slots,
+     starting on an I-frame); one stream is absent for a frame; one
+     rebuckets CIF->QCIF on an I-frame (the QCIF bucket grows); one rebucket
+     attempt on a P-frame raises PictureFormatInvalid; present_rgba after
+     every step.  Sampled streams' planes and RGBA equal the reference
+     digests every frame; FMA pixel 156; fixture within +-1 of ffmpeg; all
+     four kernels' launch counters rise.
+
+The oracle is `h263_tpu_torch/testdata/reference_digests.json`: SHA-256
+digests of the numpy reference decoder's planes and deblocked RGBA, which
+`tests/test_torch_digests.py` recomputes from the reference.
 
 Output: progress lines; a JSON line of the kernels; the nvidia-smi line; and
-as the last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
+as the last line {"ok": true, "device": {...}}.  Imports nothing of JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -34,11 +52,18 @@ import time
 import numpy as np
 
 S_MAIN = 1024
+S_QCIF = 64
+S_ODD = 64
+N_LEAVE = 32
+ODD = (145, 177)          # luma rows, columns of the odd-sized check
 W, H = 352, 288
 GOP = 8
 N_CORPORA = 16
+N_QCIF_CORPORA = 4
 SEED = 7
 DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+FP32_FLOPS = 67e12          # H100 SXM, outside the tensor cores
 
 
 def log(msg):
@@ -74,63 +99,15 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def build_corpus(width: int, height: int, n_frames: int, seed: int):
-    """One I-frame + P-frames with mixed MVs and coefficients (the recipe
-    of bench.py's build_corpus)."""
-    from h263_tpu.testing.encoder import MBSpec, encode_sorenson_picture
-    from h263_tpu.types import PictureTypeCode
-
-    rng = np.random.default_rng(seed)
-    mbw, mbh = -(-width // 16), -(-height // 16)
-    mbs = []
-    for _ in range(mbw * mbh):
-        dc = int(rng.integers(1, 128)) * 8
-        acs = [(int(rng.integers(0, 3)), int(rng.integers(1, 10)))
-               for _ in range(int(rng.integers(1, 5)))]
-        mbs.append(MBSpec(kind="intra", intradc=[dc] * 6,
-                          blocks=[acs, [], [], [], [], []]))
-    frames = [encode_sorenson_picture(
-        width, height, PictureTypeCode.I_FRAME, mbs, temporal_reference=0)]
-    for tr in range(1, n_frames):
-        mbs = []
-        for _ in range(mbw * mbh):
-            if rng.random() < 0.2:
-                mbs.append(MBSpec(kind="uncoded"))
-                continue
-            mvd = (int(rng.integers(-6, 7)), int(rng.integers(-6, 7)))
-            acs = [(int(rng.integers(0, 4)), int(rng.integers(1, 8)))
-                   for _ in range(int(rng.integers(0, 4)))]
-            mbs.append(MBSpec(kind="inter", mvd=[mvd],
-                              blocks=[acs, [], [], [], [], []]))
-        frames.append(encode_sorenson_picture(
-            width, height, PictureTypeCode.P_FRAME, mbs,
-            temporal_reference=tr & 0xFF))
-    return frames
+def bytes_bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def fma_sequence(width: int, height: int, n_frames: int):
-    """I-frame of DC 1024, then a P-frame whose first block holds
-    {735, -555, 215} (pixel (0, 2) = 128 + 28 = 156 with strict f32
-    rounding, 155 under FMA), then uncoded P-frames."""
-    from h263_tpu.testing.encoder import MBSpec, encode_sorenson_picture
-    from h263_tpu.types import PictureTypeCode
-
-    nmb = (-(-width // 16)) * (-(-height // 16))
-    f0 = encode_sorenson_picture(
-        width, height, PictureTypeCode.I_FRAME,
-        [MBSpec(kind="intra", intradc=[1024] * 6)] * nmb,
-        temporal_reference=0)
-    f1 = encode_sorenson_picture(
-        width, height, PictureTypeCode.P_FRAME,
-        [MBSpec(kind="inter", mvd=[(0, 0)],
-                blocks=[[(5, 73), (0, -55), (5, 21)], [], [], [], [], []])]
-        + [MBSpec(kind="uncoded")] * (nmb - 1),
-        quantizer=5, temporal_reference=1)
-    rest = [encode_sorenson_picture(
-        width, height, PictureTypeCode.P_FRAME,
-        [MBSpec(kind="uncoded")] * nmb, quantizer=5,
-        temporal_reference=tr) for tr in range(2, n_frames)]
-    return [f0, f1] + rest
+def max_err(torch, got, want) -> int:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{tuple(got.shape)}/{got.dtype} vs {tuple(want.shape)}/"
+             f"{want.dtype}")
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
 def idct_blocks(n: int, rng) -> np.ndarray:
@@ -157,14 +134,16 @@ def idct_blocks(n: int, rng) -> np.ndarray:
 
 def phase_idct(torch, rng):
     from h263_tpu_torch.ops import idct_cuda
-    from h263_tpu_torch.ops.idct import idct_residual_fused
+    from h263_tpu_torch.ops.idct import derive_classes, idct_residual_fused
+    from h263_tpu_torch.types import BLOCK_CLASS_DC, BLOCK_CLASS_FULL, \
+        BLOCK_CLASS_VERT
 
     n = S_MAIN * 6 * 396
     blocks = torch.as_tensor(idct_blocks(n, rng)).to(DEVICE)
     got = idct_cuda.idct_residual_cuda(blocks)
     want = idct_residual_fused(blocks)
     torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    err = max_err(torch, got, want)
     fma_k = int(got[0].view(8, 8)[0, 2])
     fma_p = int(want[0].view(8, 8)[0, 2])
     log(f"idct: n={n} blocks, max_abs_err={err}, FMA block (0,2): kernel "
@@ -173,18 +152,35 @@ def phase_idct(torch, rng):
         fail("IDCT kernel disagrees with its plain version")
     ms = cuda_ms(lambda: idct_cuda.idct_residual_cuda(blocks), 20)
     plain_ms = cuda_ms(lambda: idct_residual_fused(blocks), 3)
+    # Bytes: int16 in, int32 out.  Operations: the f32 multiply-adds each
+    # block's class needs (FULL two 8x8x8 passes, VERT one column pass and
+    # a scale, DC one product).
+    cls = torch.bincount(derive_classes(blocks).to(torch.int64),
+                         minlength=4).tolist()
+    flops = (2048 * cls[BLOCK_CLASS_FULL] + 192 * cls[BLOCK_CLASS_VERT]
+             + cls[BLOCK_CLASS_DC])
+    b_ms = bytes_bound_ms(n * 64 * (2 + 4))
+    o_ms = flops / FP32_FLOPS * 1e3
     log(f"idct: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call "
-        f"({n} blocks)")
+        f"({n} blocks); bound: bytes {b_ms:.4f} ms, f32 operations "
+        f"{o_ms:.4f} ms (classes by code {cls})")
     return dict(name="idct_residual", route="cuda",
                 source="h263_tpu_torch/csrc/idct.cu",
                 replaces="h263_tpu/ops/idct_pallas.py:34",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations",
+                library_ms=None)
 
 
 def phase_automaton(torch, corpora, rng):
-    from h263_tpu.native.bindings import DevicePrepBatch
+    from h263_tpu_torch.native import DevicePrepBatch
     from h263_tpu_torch.parser import automaton_cuda
-    from h263_tpu_torch.parser.device_frontend import parse_assemble
+    from h263_tpu_torch.parser.device_frontend import (
+        assemble,
+        parse_frames_device,
+        payload_words,
+    )
 
     S = S_MAIN
     bufs = []
@@ -197,28 +193,34 @@ def phase_automaton(torch, corpora, rng):
             b[int(rng.integers(20, len(b)))] ^= int(rng.integers(1, 256))
             f = bytes(b)
         bufs.append(f)
-    prep = DevicePrepBatch(S, W, H, 16384)
+    prep = DevicePrepBatch(S, W, H)
     total = sum(((len(b) + 3) // 4) * 4 for b in bufs)
     stage = np.zeros((total // 4 + 1, 4), dtype=np.uint8)
     meta = np.zeros((6, S), dtype=np.int32)
     prep.prepare_ragged(bufs, stage, meta)
     payload = torch.as_tensor(stage).to(DEVICE)
     dmeta = torch.as_tensor(meta).to(DEVICE)
-    kw = dict(mbh=H // 16, mbw=W // 16, width=W, height=H)
+    mbh, mbw = H // 16, W // 16
+    kw = dict(mbh=mbh, mbw=mbw, width=W, height=H)
 
     got = automaton_cuda.parse_assemble_cuda(payload, dmeta, **kw)
+    # The plain version, as parse_assemble runs it, keeping the number of
+    # lockstep steps: the longest lane's serial symbol chain.
     t0 = time.perf_counter()
-    want = parse_assemble(payload, dmeta, **kw)
+    tapes = parse_frames_device(
+        payload_words(payload), dmeta[0], dmeta[1], dmeta[2], dmeta[3],
+        dmeta[4], mbh=mbh, mbw=mbw, base=dmeta[5], width=W, height=H)
+    dense, mvs, inter, _ = assemble(tapes, mbh=mbh, mbw=mbw)
+    want = (dense, mvs, inter, tapes["status"])
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    chain = int(tapes["coe_ord"].shape[1])
     names = ("dense", "mvs", "inter", "status")
     err = 0
     bad = torch.zeros(S, dtype=torch.bool, device=DEVICE)
     for name, a, b in zip(names, got, want):
-        if a.shape != b.shape or a.dtype != b.dtype:
-            fail(f"automaton {name}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        err = max(err, max_err(torch, a, b))
         d = (a.to(torch.int64) - b.to(torch.int64)).abs().reshape(S, -1)
-        err = max(err, int(d.max()))
         bad |= (d != 0).any(dim=1)
     status = got[3].cpu().numpy()
     log(f"automaton: S={S} CIF lanes, statuses {np.bincount(status).tolist()}"
@@ -231,45 +233,65 @@ def phase_automaton(torch, corpora, rng):
         fail("automaton comparison must hold both ok and errored lanes")
     ms = cuda_ms(lambda: automaton_cuda.parse_assemble_cuda(
         payload, dmeta, **kw), 5)
+    nmb = mbh * mbw
+    nbytes = (stage.nbytes + meta.nbytes
+              + S * (6 * nmb * 64 * 2 + nmb * 8 * 2 + nmb + 4))
+    b_ms = bytes_bound_ms(nbytes)
     log(f"automaton: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms per call "
-        f"(S={S})")
+        f"(S={S}); bound: bytes {b_ms:.4f} ms ({nbytes} B); longest lane "
+        f"{chain} symbol steps, {ms * 1e6 / chain:.1f} ns per step at the "
+        f"kernel's time")
     return dict(name="entropy_automaton", route="cuda",
                 source="h263_tpu_torch/csrc/automaton.cu",
                 replaces="docs/retired/parse_pallas.py:91",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by="bytes", library_ms=None, chain_steps=chain)
 
 
-def phase_main_path(torch, corpora, root):
-    from h263_tpu import DecoderOption, H263Decoder
-    from h263_tpu.io.flv import iter_flv_video_tags
-    from h263_tpu.ops.deblock import QUANT_TO_STRENGTH, golden_deblock
-    from h263_tpu.ops.yuv import golden_yuv420_to_rgba
-    from h263_tpu_torch import DeviceFrontendDecoder
-    from h263_tpu_torch.ops import idct_cuda
+def kernel_modules():
+    from h263_tpu_torch.ops import deblock_cuda, idct_cuda, yuv_cuda
     from h263_tpu_torch.parser import automaton_cuda
 
-    fix = os.path.join(root, "tests", "fixtures")
-    with open(os.path.join(fix, "ffmpeg_flv1_cif.flv"), "rb") as fh:
-        cif = [t.payload for t in iter_flv_video_tags(fh.read())]
-    golden = np.load(os.path.join(fix, "ffmpeg_flv1_cif_golden.npz"))["luma"]
-    if len(cif) != GOP:
-        fail(f"CIF fixture has {len(cif)} frames, expected {GOP}")
-    fma = fma_sequence(W, H, GOP)
+    return {"idct_residual": idct_cuda, "entropy_automaton": automaton_cuda,
+            "deblock": deblock_cuda, "yuv420_to_rgba": yuv_cuda}
+
+
+def reset_launches():
+    for m in kernel_modules().values():
+        m.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: m.launches for k, m in kernel_modules().items()}
+
+
+def check_fixture_luma(y, golden_t, tag):
+    d = np.abs(y.astype(np.int32) - golden_t.astype(np.int32))
+    exact = float((d == 0).mean())
+    # The repo's own ffmpeg tolerance (tests/test_real_corpus.py).
+    if d.max() > 1 or exact < 0.98:
+        fail(f"{tag}: CIF fixture luma outside the golden's tolerance "
+             f"(max |dY| {int(d.max())}, exact {exact:.4f})")
+    return int(d.max()), exact
+
+
+def phase_decoder(torch, streams, golden, digests):
+    """The single-frame path of PR 1: DeviceFrontendDecoder at S=1024."""
+    from h263_tpu_torch import DeviceFrontendDecoder
+    from h263_tpu_torch.testing.corpora import planes_digest, rgba_digest
 
     # Lane -> stream: 0-3 the ffmpeg fixture, 4-7 the FMA sequence, the
     # rest the 16 corpora cycled.
-    streams = {"cif": cif, "fma": fma}
-    streams.update({f"c{k}": corpora[k] for k in range(N_CORPORA)})
-    lane_stream = (["cif"] * 4 + ["fma"] * 4
+    lane_stream = (["fixture"] * 4 + ["fma"] * 4
                    + [f"c{i % N_CORPORA}" for i in range(8, S_MAIN)])
-    sampled = [0, 4] + list(range(8, 8 + N_CORPORA)) + [S_MAIN - 1]
+    sampled = [0, 4, *range(8, 8 + N_CORPORA), S_MAIN - 1]
+    idx = torch.tensor(sampled, device=DEVICE)
 
     dec = DeviceFrontendDecoder(S_MAIN, W, H, device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    idct_cuda.launches = 0
-    automaton_cuda.launches = 0
-    step_s, kept = [], []
+    reset_launches()
+    step_s = []
     for t in range(GOP):
         bufs = [streams[s][t] for s in lane_stream]
         t0 = time.perf_counter()
@@ -279,71 +301,39 @@ def phase_main_path(torch, corpora, root):
         st = dec.fetch_status()
         if (st != 0).any():
             fail(f"frame {t}: {int((st != 0).sum())} lanes errored")
-        idx = torch.tensor(sampled, device=DEVICE)
-        kept.append(tuple(p.index_select(0, idx).cpu().numpy()
-                          for p in (y, cb, cr)))
+        kept = [p.index_select(0, idx).cpu().numpy() for p in (y, cb, cr)]
+        for j, lane in enumerate(sampled):
+            if planes_digest(*(k[j] for k in kept)) != \
+                    digests[lane_stream[lane]]["planes"][t]:
+                fail(f"decoder: lane {lane} frame {t} planes differ from the"
+                     f" reference digest")
+        if int(kept[0][1][0, 2]) != (156 if t else 128):
+            fail(f"decoder: FMA lane pixel (0,2) is {int(kept[0][1][0, 2])}")
+        check_fixture_luma(kept[0][0], golden[t], f"decoder frame {t}")
     t0 = time.perf_counter()
     rgba = dec.present_rgba(deblock=True)
     torch.cuda.synchronize()
     present_s = time.perf_counter() - t0
-    launches = dict(idct_residual=idct_cuda.launches,
-                    entropy_automaton=automaton_cuda.launches)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    rgba_s = rgba.index_select(0, torch.tensor(sampled, device=DEVICE)
-                               ).cpu().numpy()
-    log(f"main path: launches during the GOP {launches}")
+    rgba_s = rgba.index_select(0, idx).cpu().numpy()
+    for j, lane in enumerate(sampled):
+        if rgba_digest(rgba_s[j]) != digests[lane_stream[lane]]["rgba"][-1]:
+            fail(f"decoder: lane {lane} RGBA differs from the reference "
+                 f"digest")
+    log(f"decoder path: launches during the GOP and present {launches}")
     if min(launches.values()) < 1:
-        fail("a kernel of the main path was not launched")
-
+        fail("a kernel of the decoder path was not launched")
     fps_all = S_MAIN * GOP / sum(step_s)
     fps_p = S_MAIN * (GOP - 1) / sum(step_s[1:])
-    log(f"main path: S={S_MAIN} CIF x {GOP} frames, decode_step "
+    log(f"decoder path: S={S_MAIN} CIF x {GOP} frames, decode_step "
         f"{fps_all:.1f} frames/s over the GOP ({fps_p:.1f} over the P-frames;"
         f" step ms {[round(s * 1e3, 2) for s in step_s]}); present_rgba "
         f"{S_MAIN / present_s:.1f} frames/s ({present_s * 1e3:.2f} ms); peak "
-        f"device memory {peak / 2**30:.2f} GiB")
-
-    # The numpy reference decoder, once per distinct sampled stream.
-    ref = {}
-    for name in {lane_stream[i] for i in sampled}:
-        d = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM,
-                        backend="numpy")
-        pics = [d.decode_next_picture(f) for f in streams[name]]
-        ref[name] = pics
-    for j, lane in enumerate(sampled):
-        pics = ref[lane_stream[lane]]
-        for t in range(GOP):
-            for p, got, want in zip("y cb cr".split(), kept[t],
-                                    pics[t].as_yuv()):
-                if not np.array_equal(got[j], want):
-                    bad = np.argwhere(got[j] != want)[0].tolist()
-                    fail(f"lane {lane} frame {t} plane {p} differs from the "
-                         f"numpy decoder at {bad}")
-        last = pics[-1]
-        strength = int(QUANT_TO_STRENGTH[last.as_header().quantizer & 31])
-        planes = [np.asarray(a) for a in last.as_yuv()]
-        if strength > 0:
-            planes = [golden_deblock(a, strength) for a in planes]
-        if not np.array_equal(rgba_s[j], golden_yuv420_to_rgba(*planes)):
-            fail(f"lane {lane}: present_rgba differs from the golden")
-    log(f"main path: {len(sampled)} sampled lanes x {GOP} frames equal the "
-        f"numpy decoder (planes) and golden deblock+BT.601 (RGBA)")
-
-    pix = [int(kept[t][0][1][0, 2]) for t in range(1, GOP)]
-    log(f"main path: FMA lane pixel (0,2) over frames 1..7: {pix} "
-        f"(156 = strict)")
-    if pix != [156] * (GOP - 1):
-        fail("FMA lane is not 156")
-    for t in range(GOP):
-        d = np.abs(kept[t][0][0].astype(np.int32) - golden[t].astype(np.int32))
-        exact = float((d == 0).mean())
-        log(f"main path: CIF fixture frame {t} vs ffmpeg golden luma: max "
-            f"|dY| {int(d.max())}, exact {exact:.4f}")
-        # The repo's own ffmpeg tolerance (tests/test_real_corpus.py).
-        if d.max() > 1 or exact < 0.98:
-            fail("CIF fixture luma outside the golden's tolerance")
+        f"device memory {peak / 2**30:.2f} GiB; {len(sampled)} sampled lanes "
+        f"x {GOP} frames equal the reference digests (planes) and the last "
+        f"frame's RGBA; FMA 156; fixture within +-1")
     profile_step(torch, dec, [streams[s][GOP - 1] for s in lane_stream])
-    return launches
 
 
 def profile_step(torch, dec, bufs):
@@ -378,6 +368,244 @@ def profile_step(torch, dec, bufs):
             f"{e.key[:90]}")
 
 
+def blocky_planes(rng, s, h, w):
+    """uint8 [s, h, w]: half the lanes 8x8-blocky with small noise (where
+    the filter acts), half uniform noise (where it clamps and wraps)."""
+    by, bx = -(-h // 8), -(-w // 8)
+    base = rng.integers(0, 256, (s, by, bx)).repeat(8, 1).repeat(8, 2)
+    base = base[:, :h, :w] + rng.integers(-3, 4, (s, h, w))
+    noise = rng.integers(0, 256, (s, h, w))
+    lanes = (np.arange(s) % 2 == 0)[:, None, None]
+    return np.clip(np.where(lanes, base, noise), 0, 255).astype(np.uint8)
+
+
+def plane_shapes(h, w):
+    return [(h, w), ((h + 1) // 2, (w + 1) // 2), ((h + 1) // 2, (w + 1) // 2)]
+
+
+def phase_deblock(torch, rng):
+    from h263_tpu_torch.ops import deblock_cuda
+    from h263_tpu_torch.ops.deblock import deblock_batched
+
+    def inputs(s, h, w):
+        planes = [torch.as_tensor(blocky_planes(rng, s, *hw)).to(DEVICE)
+                  for hw in plane_shapes(h, w)]
+        strength = torch.as_tensor(rng.integers(0, 13, s).astype(np.int32)
+                                   ).to(DEVICE)
+        apply = torch.as_tensor(rng.random(s) < 0.75).to(DEVICE)
+        return planes, strength, apply
+
+    err = 0
+    for s, (h, w) in ((S_MAIN, (H, W)), (S_ODD, ODD)):
+        planes, strength, apply = inputs(s, h, w)
+        for p in planes:
+            got = deblock_cuda.deblock_batched_cuda(p, strength, apply)
+            want = deblock_batched(p, strength, apply)
+            e = max_err(torch, got, want)
+            err = max(err, e)
+            changed = int((got != p).any(dim=(1, 2)).sum())
+            log(f"deblock: S={s} plane {tuple(p.shape[1:])}: max_abs_err={e}"
+                f", lanes changed {changed} of {s}")
+            if e != 0 or changed == 0:
+                fail("deblock kernel disagrees with its plain version (or "
+                     "changed nothing)")
+    planes, strength, apply = inputs(S_MAIN, H, W)
+
+    def kernel():
+        for p in planes:
+            deblock_cuda.deblock_batched_cuda(p, strength, apply)
+
+    def plain():
+        for p in planes:
+            deblock_batched(p, strength, apply)
+
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 3)
+    nbytes = 2 * sum(p.numel() for p in planes) + S_MAIN * 5
+    b_ms = bytes_bound_ms(nbytes)
+    log(f"deblock: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms for the three "
+        f"CIF planes of {S_MAIN} frames; bound: bytes {b_ms:.4f} ms")
+    return dict(name="deblock", route="cuda",
+                source="h263_tpu_torch/csrc/deblock.cu",
+                replaces="h263_tpu/ops/deblock_pallas.py:75",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by="bytes", library_ms=None)
+
+
+def phase_yuv(torch, rng):
+    from h263_tpu_torch.ops import yuv_cuda
+    from h263_tpu_torch.ops.yuv import yuv420_to_rgba
+
+    def inputs(s, h, w):
+        return [torch.as_tensor(rng.integers(0, 256, (s, *hw), dtype=np.uint8)
+                                ).to(DEVICE) for hw in plane_shapes(h, w)]
+
+    err = 0
+    for s, (h, w) in ((S_MAIN, (H, W)), (S_ODD, ODD)):
+        y, cb, cr = inputs(s, h, w)
+        got = yuv_cuda.yuv420_to_rgba_cuda(y, cb, cr)
+        want = yuv420_to_rgba(y, cb, cr)
+        e = max_err(torch, got, want)
+        err = max(err, e)
+        log(f"yuv420_to_rgba: S={s} luma {(h, w)}: max_abs_err={e}")
+        if e != 0:
+            fail("YUV->RGBA kernel disagrees with its plain version")
+    y, cb, cr = inputs(S_MAIN, H, W)
+    ms = cuda_ms(lambda: yuv_cuda.yuv420_to_rgba_cuda(y, cb, cr), 20)
+    plain_ms = cuda_ms(lambda: yuv420_to_rgba(y, cb, cr), 3)
+    nbytes = y.numel() + cb.numel() + cr.numel() + 4 * y.numel()
+    b_ms = bytes_bound_ms(nbytes)
+    log(f"yuv420_to_rgba: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms for "
+        f"{S_MAIN} CIF frames; bound: bytes {b_ms:.4f} ms")
+    return dict(name="yuv420_to_rgba", route="cuda",
+                source="h263_tpu_torch/csrc/yuv.cu",
+                replaces="h263_tpu/ops/yuv_pallas.py:23",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by="bytes", library_ms=None)
+
+
+class _Timed:
+    """Host wall time of a bound method, synchronised on both sides."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.seconds, self.calls = torch, fn, [], 0
+
+    def __call__(self, *args, **kwargs):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        self.torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def phase_pool(torch, streams, golden, digests):
+    """The serving pool: two buckets, churn, absence, rebucketing, growth."""
+    from h263_tpu_torch.parallel.pool import StreamPool
+    from h263_tpu_torch.testing.corpora import planes_digest, rgba_digest
+    from h263_tpu_torch.types import PictureFormatInvalid
+    from h263_tpu_torch.utils.trace import get_counters
+
+    seq_of = {}
+    for i in range(S_MAIN):
+        seq_of[f"cif{i}"] = ("fixture" if i < 4 else "fma" if i < 8
+                             else f"c{i % N_CORPORA}")
+    for j in range(S_QCIF):
+        seq_of[f"qcif{j}"] = f"q{j % N_QCIF_CORPORA}"
+    leavers = [f"cif{i}" for i in range(64, 64 + N_LEAVE)]
+    joiners = {f"join{k}": f"c{k % N_CORPORA}" for k in range(N_LEAVE)}
+    absent, absent_t = "cif17", 2                 # c1, sits out frame 2
+    mover, move_t, move_to = "cif16", 5, "q0"     # c0 -> QCIF on an I-frame
+    refused, refuse_t = "cif48", 6                # c0, a QCIF P-frame offered
+    # Every corpus, the fixture and FMA; the absent, moved and refused
+    # streams; joiners; the last CIF slot; every QCIF corpus.
+    sampled = ["cif0", "cif4", *(f"cif{i}" for i in range(8, 8 + N_CORPORA)),
+               "cif48", f"cif{S_MAIN - 1}", "join0", "join1", "join16",
+               *(f"qcif{j}" for j in range(N_QCIF_CORPORA)), "qcif4"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    pool = StreamPool(device=DEVICE)
+    for sid, name in seq_of.items():
+        pool.add_stream(sid, *streams[name][:2])
+    cursor = {sid: 0 for sid in seq_of}
+    cif_dec = qcif_n0 = None
+    frames_done = 0
+    pool_s, present_s = [], []
+    for t in range(GOP):
+        if t == 4:
+            for sid in leavers:
+                pool.remove_stream(sid)
+                del seq_of[sid], cursor[sid]
+            for sid, name in joiners.items():
+                pool.add_stream(sid, W, H)
+                seq_of[sid], cursor[sid] = name, 0
+        if t == move_t:
+            seq_of[mover], cursor[mover] = move_to, 0
+        if t == refuse_t:
+            try:
+                pool.decode_step({refused: streams["q1"][2][1]})
+                fail("a rebucket on a P-frame was accepted")
+            except PictureFormatInvalid as e:
+                log(f"pool: a P-frame rebucket was refused ({e})")
+            if pool._dims[refused] != (W, H):
+                fail("the refused stream moved")
+        feed = {sid: streams[name][2][cursor[sid]]
+                for sid, name in seq_of.items()
+                if not (sid == absent and t == absent_t)}
+        t0 = time.perf_counter()
+        out = pool.decode_step(feed)
+        torch.cuda.synchronize()
+        pool_s.append(time.perf_counter() - t0)
+        frames_done += len(feed)
+        if t == 0:
+            cif_dec = pool._buckets[(W, H)].dec
+            cif_dec.decode_step = _Timed(torch, cif_dec.decode_step)
+            cif_dec.present_rgba = _Timed(torch, cif_dec.present_rgba)
+            qcif_n0 = pool._buckets[(176, 144)].dec.n
+        if set(out) != set(feed):
+            fail(f"frame {t}: results for {len(out)} streams, fed "
+                 f"{len(feed)}")
+        for sid in sampled:
+            if sid not in feed:
+                continue
+            name, k = seq_of[sid], cursor[sid]
+            y, cb, cr = out[sid]
+            if planes_digest(y, cb, cr) != digests[name]["planes"][k]:
+                fail(f"pool: {sid} ({name} frame {k}) at step {t} differs "
+                     f"from the reference digest")
+            if name == "fma" and int(y[0, 2]) != (156 if k else 128):
+                fail(f"pool: FMA pixel (0,2) is {int(y[0, 2])}")
+            if name == "fixture":
+                check_fixture_luma(y, golden[k], f"pool step {t}")
+        for sid in feed:
+            cursor[sid] += 1
+        t0 = time.perf_counter()
+        rgba = pool.present_rgba(deblock=True)
+        torch.cuda.synchronize()
+        present_s.append(time.perf_counter() - t0)
+        if set(rgba) != set(seq_of):
+            fail("present_rgba does not cover every registered stream")
+        for sid in sampled:
+            if sid not in seq_of:                 # a joiner, not yet joined
+                continue
+            name, k = seq_of[sid], cursor[sid] - 1
+            if rgba_digest(rgba[sid].cpu().numpy()) != digests[name]["rgba"][k]:
+                fail(f"pool: {sid} RGBA ({name} frame {k}) at step {t} "
+                     f"differs from the reference digest")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    counters = get_counters()
+    qcif_n1 = pool._buckets[(176, 144)].dec.n
+    log(f"pool path: launches {launches}; counters {counters}; QCIF bucket "
+        f"{qcif_n0} -> {qcif_n1} slots; CIF bucket {cif_dec.n} slots")
+    if min(launches.values()) < 1:
+        fail("a kernel of the pool path was not launched")
+    if qcif_n1 <= qcif_n0 or pool._dims[mover] != (176, 144):
+        fail("the rebucketed stream did not grow the QCIF bucket")
+    if cif_dec is not pool._buckets[(W, H)].dec:
+        fail("the CIF bucket grew; its joiners should recycle slots")
+    dec_s = cif_dec.decode_step.seconds
+    pre_s = cif_dec.present_rgba.seconds
+    rest_ms = [round((p - d) * 1e3, 2) for p, d in zip(pool_s[1:], dec_s)]
+    log(f"pool path: {frames_done} frames over {GOP} steps, "
+        f"{frames_done / sum(pool_s):.1f} frames/s (step ms "
+        f"{[round(s * 1e3, 2) for s in pool_s]}); CIF bucket ({cif_dec.n} "
+        f"slots): decode over steps 1-{GOP - 1} "
+        f"{cif_dec.n * len(dec_s) / sum(dec_s):.1f} frames/s (ms "
+        f"{[round(s * 1e3, 2) for s in dec_s]}), present over steps 0-"
+        f"{GOP - 1} "
+        f"{cif_dec.n * len(pre_s) / sum(pre_s):.1f} frames/s (ms "
+        f"{[round(s * 1e3, 2) for s in pre_s]}); the rest of each pool step"
+        f" (QCIF bucket, headers, rebucketing) ms {rest_ms}; present_rgba "
+        f"of the whole "
+        f"pool ms {[round(s * 1e3, 2) for s in present_s]}; peak device "
+        f"memory {peak / 2**30:.2f} GiB; {len(sampled)} sampled streams "
+        f"equal the reference digests every frame (planes and RGBA)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -386,8 +614,8 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from h263_tpu.native import ensure_built
-    from h263_tpu_torch import kernels
+    from h263_tpu_torch import kernels, native
+    from h263_tpu_torch.testing import corpora as C
 
     smi = nvidia_smi_line()
     log(f"env: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -395,25 +623,42 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.lib()
-    if not ensure_built():
-        fail("native header prep did not build")
+    native.lib()
     log(f"build: kernels + native prep ready in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {kernels.last_build_seconds})")
 
     rng = np.random.default_rng(SEED)
-    corpora = [build_corpus(W, H, GOP, seed=SEED + k)
-               for k in range(N_CORPORA)]
-    records = [phase_idct(torch, rng), phase_automaton(torch, corpora, rng)]
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    launches = phase_main_path(torch, corpora, root)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    cif = [C.cif_corpus(k) for k in range(N_CORPORA)]
+    streams = {f"c{k}": (W, H, cif[k]) for k in range(N_CORPORA)}
+    streams.update({f"q{k}": (176, 144, C.qcif_corpus(k))
+                    for k in range(N_QCIF_CORPORA)})
+    fix = os.path.join(root, "tests", "fixtures")
+    streams["fixture"] = (W, H, C.fixture_frames(
+        os.path.join(fix, "ffmpeg_flv1_cif.flv")))
+    streams["fma"] = (W, H, C.fma_sequence(W, H, GOP))
+    golden = np.load(os.path.join(fix, "ffmpeg_flv1_cif_golden.npz"))["luma"]
+    if len(streams["fixture"][2]) != GOP:
+        fail(f"CIF fixture has {len(streams['fixture'][2])} frames, expected "
+             f"{GOP}")
+    digests = C.load_digests()
+    missing = sorted(set(streams) - set(digests))
+    if missing:
+        fail(f"no reference digests for {missing}")
+
+    records = [phase_idct(torch, rng), phase_automaton(torch, cif, rng)]
+    phase_decoder(torch, {k: v[2] for k, v in streams.items()}, golden,
+                  digests)
+    records += [phase_deblock(torch, rng), phase_yuv(torch, rng)]
+    launches = phase_pool(torch, streams, golden, digests)
+    for mod in ("jax", "h263_tpu"):
+        if mod in sys.modules:
+            fail(f"{mod} was imported")
     for r in records:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")}
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")}
         for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,21 @@
 """h263_tpu_torch — the PyTorch / CUDA port of h263_tpu's device path.
 
-The JAX package `h263_tpu` stays the reference.  This package imports its
-host layer (bitstream types, VLC tables, native header prep, encoder) and
-replaces what ran on the device: the entropy automaton and the sparse-class
-IDCT become hand-written CUDA kernels for Hopper (`csrc/`), motion
-compensation, add-clamp and presentation plain tensor code.  It imports
-`torch` and never `jax`.
+The JAX package `h263_tpu` stays the reference.  This package imports
+neither it nor `jax`: it keeps its own copies of the host layer it needs
+(bitstream types, VLC tables, the native header prep, the test encoder, the
+FLV demuxer).  What ran on the device runs here as hand-written CUDA
+kernels for Hopper (`csrc/`): the entropy automaton, the sparse-class IDCT,
+the Annex-J deblock and the BT.601 RGBA conversion; motion compensation and
+add-clamp are plain tensor code.
 
-Main entry point: `DeviceFrontendDecoder(n_streams, width, height,
-device="cuda")`, whose `decode_step(list_of_frame_bytes)` returns the
-decoded planes and whose `present_rgba()` returns RGBA.
+Entry points, on the card unless the caller names `device="cpu"`:
+`StreamPool()`, the serving pool of Sorenson streams of mixed resolutions
+(`add_stream`, `remove_stream`, `decode_step({id: frame})`,
+`present_rgba()`), and `DeviceFrontendDecoder(n_streams, width, height)`,
+one lockstep bucket of it.
 """
 
 from .parallel.device_batch import DeviceFrontendDecoder
+from .parallel.pool import StreamPool
 
-__all__ = ["DeviceFrontendDecoder"]
+__all__ = ["DeviceFrontendDecoder", "StreamPool"]

@@ -5,19 +5,21 @@ Port of the device tail of `h263_tpu/decoder/reconstruct.py`:
     planes = clamp(halfpel_gather(ref, mv) + clipped_idct(coeffs), 0, 255)
 
 `reconstruct_from_dense` runs the IDCT through the CUDA kernel wrapper
-(`ops/idct_cuda.py`) — on a CUDA tensor the kernel, on a CPU tensor its
-plain version — as the JAX package ran the Pallas kernel on the TPU.
-Motion compensation, add-clamp and presentation are plain tensor code.
+(`ops/idct_cuda.py`) and `present_rgba_batched` the deblock and BT.601
+conversion through theirs (`ops/deblock_cuda.py`, `ops/yuv_cuda.py`) — on a
+CUDA tensor the kernel, on a CPU tensor its plain version — as the JAX
+package ran the Pallas kernels on the TPU.  Motion compensation and
+add-clamp are plain tensor code.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.deblock import deblock
+from ..ops.deblock_cuda import deblock_batched_cuda
 from ..ops.idct_cuda import idct_residual_cuda
 from ..ops.mocomp import chroma_mv, gather_plane
-from ..ops.yuv import yuv420_to_rgba
+from ..ops.yuv_cuda import yuv420_to_rgba_cuda
 
 
 def _blocks_to_plane(res, h, w):
@@ -85,11 +87,8 @@ def present_rgba_batched(y, cb, cr, strength, apply_deblock):
     """Optional per-stream deblock + BT.601 RGBA.  y uint8 [S, H, W]; cb/cr
     uint8 [S, ch, cw]; strength int32 [S]; apply_deblock bool [S] ->
     RGBA uint8 [S, H, W, 4]."""
-    s3 = strength.to(torch.int32)[:, None, None]
-    use = apply_deblock.to(torch.bool)[:, None, None] & (s3 > 0)
-
-    def maybe_deblock(plane):
-        return torch.where(use, deblock(plane, s3), plane)
-
-    return yuv420_to_rgba(maybe_deblock(y), maybe_deblock(cb),
-                          maybe_deblock(cr))
+    strength = strength.to(torch.int32).contiguous()
+    apply_deblock = apply_deblock.to(torch.bool).contiguous()
+    y, cb, cr = (deblock_batched_cuda(p.contiguous(), strength, apply_deblock)
+                 for p in (y, cb, cr))
+    return yuv420_to_rgba_cuda(y, cb, cr)

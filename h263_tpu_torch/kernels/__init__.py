@@ -1,34 +1,44 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `h263_tpu_torch/csrc/*.cu` is compiled by nvcc into ONE shared library
-with a plain C interface, at first use, and loaded with ctypes:
+Every `h263_tpu_torch/csrc/*.cu` is compiled by its own nvcc process, all
+started together, and the objects are linked into ONE shared library with a
+plain C interface, at first use, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o kernels/build/libh263cuda_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c csrc/<name>.cu         (one per source, in parallel)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o \
+         kernels/build/libh263cuda_<hash>.so *.o
 
 `-fmad=false` keeps nvcc from contracting a multiply and an add into one FMA
 (the IDCT must round every product, like the reference).  The library's name
-carries a hash of every source's content, so an edited source rebuilds.
-There is no fallback: a missing nvcc or a failed build raises with the
-compiler's output.  Importing this module builds nothing.
+carries a hash of every source's content and the flags, so an edited source
+rebuilds.  Concurrent builders take an `fcntl` lock on `build/.lock`; the
+objects and the library are written into a temporary directory and the
+library is `os.replace`d into place.  There is no
+fallback: a missing nvcc or a failed build raises with the compiler's
+output.  Importing this module builds nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +52,11 @@ SIGNATURES = {
     #  ext_y, tables int32, dense, mvs, inter, status, stream)
     "h263_automaton": [_P, ctypes.c_int64, _P, _I, _I, _I, _I, _I, _P,
                        _P, _P, _P, _P, _P],
+    # (planes u8 [S,h,w], out u8 [S,h,w], S, h, w, strength int32 [S],
+    #  apply u8 [S], stream)
+    "h263_deblock": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # (y u8 [S,h,w], cb, cr u8 [S,ch,cw], out u8 [S,h,w,4], S, h, w, stream)
+    "h263_yuv_rgba": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -73,27 +88,54 @@ def _nvcc() -> str:
                        "need the CUDA toolkit (set CUDA_HOME or PATH)")
 
 
+def run_all(cmds) -> None:
+    """Run every command at once; raise with each failing one's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (rc {proc.returncode}): "
+                          f"{' '.join(map(str, cmd))}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def compile_commands(nvcc: str, outdir: Path, lib: Path) -> tuple:
+    """(one compile command per source, the link command) into `outdir`."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [outdir / f"{src.stem}.o" for src in srcs]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(srcs, objs)]
+    return compiles, [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+                      *map(str, objs)]
+
+
 def build() -> Path:
     """Compile the kernels if the library for the current sources is absent;
     returns its path."""
     global last_build_seconds
-    import time
 
-    so = BUILD / f"libh263cuda_{_digest()}.so"
+    digest = _digest()
+    so = BUILD / f"libh263cuda_{digest}.so"
     if so.exists():
         return so
+    nvcc = _nvcc()
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
-    last_build_seconds = time.perf_counter() - t0
+    with open(BUILD / ".lock", "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if so.exists():              # built by another process meanwhile
+            return so
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+            tmp_so = Path(tmp) / so.name
+            compiles, link = compile_commands(nvcc, Path(tmp), tmp_so)
+            run_all(compiles)
+            run_all([link])
+            os.replace(tmp_so, so)
+        last_build_seconds = time.perf_counter() - t0
     return so
 
 

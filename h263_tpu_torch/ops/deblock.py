@@ -8,11 +8,21 @@ scalar remainder by Rust `/` (truncation toward zero), so
   * vertical edges:   rows    [0, 8*(h//8)) floor, the rest trunc.
 
 A and D write back with a wrapping u8 cast; B and C clamp to [0, 255].
+
+`deblock_batched` is the plain version of the CUDA kernel
+(`ops/deblock_cuda.py`): per-stream strengths and an apply mask.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# Table J.2/H.263 (deblock.rs:5-8; `h263_tpu/ops/deblock.py`); index by
+# QUANT, [0] unused.
+QUANT_TO_STRENGTH = np.array(
+    [0, 1, 1, 2, 2, 3, 3, 4, 4, 4, 5, 5, 6, 6, 7, 7, 7, 8, 8, 8, 9, 9, 9,
+     10, 10, 10, 11, 11, 11, 12, 12, 12], dtype=np.int32)
 
 
 def _div_trunc(x, d):
@@ -79,3 +89,12 @@ def deblock(plane, strength):
                 out[..., :, ca + o] = v
 
     return out.to(torch.uint8)
+
+
+def deblock_batched(planes, strength, apply):
+    """uint8 planes [S, H, W], int32 strength [S], bool apply [S] -> uint8
+    [S, H, W]: stream s deblocked with strength[s] where apply[s] and
+    strength[s] > 0, else copied."""
+    s3 = strength.to(torch.int32)[:, None, None]
+    use = apply.to(torch.bool)[:, None, None] & (s3 > 0)
+    return torch.where(use, deblock(planes, s3), planes)

@@ -15,14 +15,38 @@ rounding boundaries (the FMA block {735, -555, 215} must give 28).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from h263_tpu.ops.idct import BASIS_F32
-from h263_tpu.types import (
+from ..types import (
     BLOCK_CLASS_DC,
     BLOCK_CLASS_FULL,
     BLOCK_CLASS_VERT,
     BLOCK_CLASS_ZERO,
+)
+
+# The reference's precomputed f32 cosine basis (idct.rs:39-48); row 0 folds in
+# the 1/sqrt(2) DC scaling.  BASIS[freq][x].
+BASIS_F32 = np.array(
+    [
+        [0.70710677, 0.70710677, 0.70710677, 0.70710677,
+         0.70710677, 0.70710677, 0.70710677, 0.70710677],
+        [0.98078525, 0.8314696, 0.5555702, 0.19509023,
+         -0.19509032, -0.55557036, -0.83146966, -0.9807853],
+        [0.9238795, 0.38268343, -0.38268352, -0.9238796,
+         -0.9238795, -0.38268313, 0.3826836, 0.92387956],
+        [0.8314696, -0.19509032, -0.9807853, -0.55557,
+         0.55557007, 0.98078525, 0.19509007, -0.8314698],
+        [0.70710677, -0.70710677, -0.70710665, 0.707107,
+         0.70710677, -0.70710725, -0.70710653, 0.7071068],
+        [0.5555702, -0.9807853, 0.19509041, 0.83146936,
+         -0.8314698, -0.19508928, 0.9807853, -0.55557007],
+        [0.38268343, -0.9238795, 0.92387974, -0.3826839,
+         -0.38268384, 0.9238793, -0.92387974, 0.3826839],
+        [0.19509023, -0.55557, 0.83146936, -0.9807852,
+         0.98078525, -0.83147013, 0.55557114, -0.19508967],
+    ],
+    dtype=np.float32,
 )
 
 

@@ -10,10 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from h263_tpu.ops.idct import BASIS_F32
-
 from .. import kernels
-from .idct import idct_residual_fused
+from .idct import BASIS_F32, idct_residual_fused
 
 # Kernel launches since the last reset (plain-version calls do not count).
 launches = 0

@@ -8,7 +8,13 @@ from __future__ import annotations
 
 import torch
 
-from h263_tpu.ops.yuv import _CB2B, _CB2G, _CR2G, _CR2R, _GRAY, _HALF
+# 16.16 fixed-point coefficients (those of `h263_tpu/ops/yuv.py`).
+_GRAY = 76309    # (255/219) * 65536
+_CR2R = 104597   # (255/224) * 1.402 * 65536
+_CR2G = -53279   # -(255/224) * 1.402 * (0.299/0.587) * 65536
+_CB2G = -25675   # -(255/224) * 1.772 * (0.114/0.587) * 65536
+_CB2B = 132201   # (255/224) * 1.772 * 65536
+_HALF = 32768
 
 
 def yuv420_to_rgba(y, cb, cr):

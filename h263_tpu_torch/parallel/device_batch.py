@@ -26,21 +26,23 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from h263_tpu.ops.deblock import QUANT_TO_STRENGTH
-from h263_tpu.types import DecoderOption, H263Error, PictureTypeCode
-
 from ..decoder.reconstruct import present_rgba_batched, reconstruct_from_dense
+from ..native import DevicePrepBatch
+from ..ops.deblock import QUANT_TO_STRENGTH
 from ..parser.automaton_cuda import parse_assemble_cuda
+from ..testing.encoder import MBSpec, encode_sorenson_picture
+from ..types import DecoderOption, H263Error, PictureTypeCode
 
 
 class DeviceFrontendDecoder:
     """Decode S same-resolution Sorenson streams, one frame per stream per
-    `decode_step`, on `device` ("cuda" or "cpu"; no fallback between them).
+    `decode_step`, on `device` ("cuda", the default, or "cpu"; no fallback
+    between them).
     """
 
     def __init__(self, n_streams: int, width: int, height: int,
                  decoder_options: DecoderOption = DecoderOption.SORENSON_SPARK_BITSTREAM,
-                 *, device, max_frame_bytes: Optional[int] = None):
+                 *, device="cuda", max_frame_bytes: Optional[int] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but CUDA is not "
@@ -50,20 +52,13 @@ class DeviceFrontendDecoder:
         if not decoder_options & DecoderOption.SORENSON_SPARK_BITSTREAM:
             raise ValueError("the native header prep parses Sorenson "
                              "headers only")
-        from h263_tpu.native import ensure_built
-
-        if not ensure_built():
-            raise RuntimeError("the native header prep (h263_tpu.native) "
-                               "failed to build; it is required")
-        from h263_tpu.native.bindings import DevicePrepBatch
-
         self.n = n_streams
         self.w, self.h = width, height
         self.cw, self.ch = (width + 1) // 2, (height + 1) // 2
         self.mb_w, self.mb_h = -(-width // 16), -(-height // 16)
         cap = (((max_frame_bytes or 8192) + 3) // 4) * 4
         self.max_frame_bytes = cap
-        self._prep = DevicePrepBatch(n_streams, width, height, cap)
+        self._prep = DevicePrepBatch(n_streams, width, height)
 
         def planes(h, w):
             return torch.zeros((n_streams, h, w), dtype=torch.uint8,
@@ -93,8 +88,6 @@ class DeviceFrontendDecoder:
     def _skip_frame_bytes(self) -> bytes:
         """An all-uncoded P-frame: decodes to the identity frame."""
         if self._skip is None:
-            from h263_tpu.testing.encoder import MBSpec, encode_sorenson_picture
-
             self._skip = encode_sorenson_picture(
                 self.w, self.h, PictureTypeCode.P_FRAME,
                 [MBSpec(kind="uncoded")] * (self.mb_w * self.mb_h),
@@ -184,9 +177,11 @@ class DeviceFrontendDecoder:
         if last_deblock is not None:
             self._last_deblock[:] = np.asarray(last_deblock, dtype=np.bool_)
 
-    def reset_slot_state(self, slot: int) -> None:
+    def reset_slot_state(self, slot: int, running=None) -> None:
         """Reset one lane to a fresh stream: planes zeroed, presentation
-        params and status cleared."""
+        params and status cleared (the pool's slot-recycle contract).
+        `running` is the JAX package's carried-options seed, which Sorenson
+        headers never use; it is accepted for the same call shape."""
         # Out of place: the planes and status a step returned stay as
         # they were.
         idx = torch.tensor([slot], device=self.device)

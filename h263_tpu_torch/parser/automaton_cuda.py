@@ -12,18 +12,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from h263_tpu.parser.device_frontend import (
+from .. import kernels
+from ..vlc_tables import ZIGZAG_TO_ROWMAJOR
+from .device_frontend import parse_assemble
+from .tables import (
     CBPY_ARR,
     MCBPC_I_ARR,
     MCBPC_P_ARR,
     MVD_ARR,
     TCOEF_ARR,
+    _extended_range_for_dim,
 )
-from h263_tpu.parser.mvpred import _extended_range_for_dim
-from h263_tpu.vlc_tables import ZIGZAG_TO_ROWMAJOR
-
-from .. import kernels
-from .device_frontend import parse_assemble
 
 # Kernel launches since the last reset (plain-version calls do not count).
 launches = 0

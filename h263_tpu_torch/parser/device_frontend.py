@@ -6,7 +6,7 @@ Port of `h263_tpu/parser/device_frontend.py`: `payload_words`, `make_step`,
 one lane; every lane runs the same serial VLC automaton, one symbol per
 step, with per-lane control flow turned into per-lane state and masked
 selects.  The semantics, status codes and packed VLC tables are the JAX
-package's, imported from it:
+package's (copied into `parser/tables.py`):
 
 * phases HEADER / MVD / DC / COEF, then DONE (EOF at an MB boundary:
   tail-fill) or ERR (the frame fails: identity frame);
@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from h263_tpu.parser.device_frontend import (  # noqa: F401  (re-exported)
+from .tables import (  # noqa: F401  (re-exported)
     _FLG_4V,
     _FLG_INTER,
     _FLG_PRESENT,
@@ -71,10 +71,10 @@ from h263_tpu.parser.device_frontend import (  # noqa: F401  (re-exported)
     TCOEF_ARR,
     TCOEF_LEN,
     _dense_block_perm,
+    _extended_range_for_dim,
     status_error_class,
 )
-from h263_tpu.parser.mvpred import _extended_range_for_dim
-from h263_tpu.vlc_tables import ZIGZAG_TO_ROWMAJOR
+from ..vlc_tables import ZIGZAG_TO_ROWMAJOR
 
 _I32 = torch.int32
 _I64 = torch.int64

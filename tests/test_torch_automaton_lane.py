@@ -99,9 +99,9 @@ def test_fuzz_corpus(lane_lib, flavor, seed):
 def test_lane_matches_the_plain_port_at_cif(lane_lib):
     """At the main path's size (CIF: a 22-macroblock MV ring), the lane body
     and the port's plain automaton agree on a P-frame and two cuts."""
-    import chip_smoke
+    from h263_tpu_torch.testing.corpora import build_corpus
 
-    p = chip_smoke.build_corpus(352, 288, 2, seed=3)[1]
+    p = build_corpus(352, 288, 2, seed=3)[1]
     cases = [corpora.header_case(b) for b in (p, p[:60], p[:700])]
     got = run_lane(lane_lib, cases, 352, 288)
     want = corpora.run_port(cases, 352, 288)

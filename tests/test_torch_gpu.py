@@ -1,7 +1,7 @@
 """The port's CUDA kernels on a GPU, against their plain PyTorch versions.
 
-These tests need a CUDA device and skip without one.  They import no JAX,
-so they also run where JAX is not installed:
+These tests need a CUDA device and skip without one.  They import neither
+JAX nor the JAX package, so they also run where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
@@ -12,11 +12,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from h263_tpu_torch import DeviceFrontendDecoder  # noqa: E402
-from h263_tpu_torch.ops import idct_cuda  # noqa: E402
+from h263_tpu_torch.native import DevicePrepBatch  # noqa: E402
+from h263_tpu_torch.ops import deblock_cuda, idct_cuda, yuv_cuda  # noqa: E402
+from h263_tpu_torch.ops.deblock import deblock_batched  # noqa: E402
 from h263_tpu_torch.ops.idct import idct_residual_fused  # noqa: E402
+from h263_tpu_torch.ops.yuv import yuv420_to_rgba  # noqa: E402
+from h263_tpu_torch.parallel.pool import StreamPool  # noqa: E402
 from h263_tpu_torch.parser import automaton_cuda  # noqa: E402
 from h263_tpu_torch.parser import device_frontend as tdf  # noqa: E402
-from test_device_frontend import rich_gop  # noqa: E402
+from h263_tpu_torch.testing.corpora import rich_gop  # noqa: E402
 
 
 @pytest.fixture
@@ -50,12 +54,8 @@ def test_automaton_kernel_matches_plain(cuda):
     for seed in range(3):
         frames += rich_gop(seed)
     frames += [frames[1][:k] for k in range(8, len(frames[1]), 5)]
-    from h263_tpu.native import ensure_built
-    from h263_tpu.native.bindings import DevicePrepBatch
-
-    assert ensure_built()
     S = len(frames)
-    prep = DevicePrepBatch(S, 48, 32, 8192)
+    prep = DevicePrepBatch(S, 48, 32)
     total = sum(((len(f) + 3) // 4) * 4 for f in frames)
     stage = np.zeros((total // 4 + 1, 4), np.uint8)
     meta = np.zeros((6, S), np.int32)
@@ -67,6 +67,52 @@ def test_automaton_kernel_matches_plain(cuda):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
     assert (want[3] != 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (9, 10), (17, 11), (32, 48),
+                                   (145, 177), (288, 352), (720, 1280)])
+def test_deblock_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(shape[1])
+    S = 13
+    planes = rng.integers(0, 256, (S, *shape), dtype=np.uint8)
+    planes[::2] = planes[::2] // 16 * 16 + 5          # flat blocks, edges
+    strength = np.arange(S, dtype=np.int32)
+    apply = rng.random(S) < 0.7
+    args = [torch.as_tensor(a) for a in (planes, strength, apply)]
+    before = deblock_cuda.launches
+    got = deblock_cuda.deblock_batched_cuda(*[a.to(cuda) for a in args])
+    assert deblock_cuda.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  deblock_batched(*args).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (17, 11), (9, 130), (145, 177),
+                                   (288, 352)])
+def test_yuv_kernel_matches_plain(cuda, shape):
+    h, w = shape
+    rng = np.random.default_rng(h + w)
+    planes = [torch.as_tensor(rng.integers(0, 256, (5, *hw), dtype=np.uint8))
+              for hw in ((h, w), ((h + 1) // 2, (w + 1) // 2),
+                         ((h + 1) // 2, (w + 1) // 2))]
+    before = yuv_cuda.launches
+    got = yuv_cuda.yuv420_to_rgba_cuda(*[p.to(cuda) for p in planes])
+    assert yuv_cuda.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  yuv420_to_rgba(*planes).numpy())
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_tensors_on_two_devices(cuda):
+    p = torch.zeros((2, 16, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        deblock_cuda.deblock_batched_cuda(
+            p, torch.ones(2, dtype=torch.int32),
+            torch.ones(2, dtype=torch.bool, device=cuda))
+    c = torch.zeros((2, 8, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        yuv_cuda.yuv420_to_rgba_cuda(p, c, c)
 
 
 @pytest.mark.gpu
@@ -82,3 +128,27 @@ def test_cuda_decoder_matches_cpu_decoder(cuda):
     np.testing.assert_array_equal(gd.fetch_status(), cd.fetch_status())
     np.testing.assert_array_equal(gd.present_rgba(deblock=True).cpu().numpy(),
                                   cd.present_rgba(deblock=True).numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_pool_matches_cpu_pool(cuda):
+    pools = [StreamPool(), StreamPool(device="cpu")]
+    a, b = rich_gop(1, n=3), rich_gop(2, 64, 48, n=3)
+    x = rich_gop(3, 64, 48, n=2)
+    for pool in pools:
+        pool.add_stream("a", 48, 32)
+        pool.add_stream("b", 64, 48)
+    for t in range(3):
+        feed = {"a": a[t], "b": b[t]}
+        if t == 1:
+            feed["a"] = x[0]                        # rebucket on an I-frame
+        if t == 2:
+            feed["a"] = x[1]
+        outs = [pool.decode_step(feed) for pool in pools]
+        for sid in feed:
+            for g, c in zip(outs[0][sid], outs[1][sid]):
+                np.testing.assert_array_equal(g, c)
+        rgba = [pool.present_rgba(deblock=True) for pool in pools]
+        for sid in rgba[1]:
+            np.testing.assert_array_equal(rgba[0][sid].cpu().numpy(),
+                                          rgba[1][sid].numpy())
