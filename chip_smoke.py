@@ -12,12 +12,20 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
   4. automaton kernel vs its plain version on the card at the main path's
      shapes, 1024 CIF lanes (every frame of the 16 corpora), one lane in
      eight truncated and one in eight byte-flipped: equal dense, MVs, INTER
-     and status on every lane;
+     and status on every lane.  Timed on that set and on a clean set of
+     P-frames, at S=1024 and at S=2048 (each set twice over, whose halves
+     must equal the S=1024 outputs);
   5. the single-frame path: DeviceFrontendDecoder(1024, 352, 288) over an
      8-frame GOP (1 I + 7 P) of 16 synthetic corpora cycled over the lanes,
      plus lanes on the FMA sequence (pixel 156) and on the ffmpeg CIF fixture
      (vs its golden luma); sampled lanes' planes and RGBA equal the reference
-     digests; every kernel's launch counter rises;
+     digests; every kernel's launch counter rises.  On one P-step the fused
+     reconstruct kernel's planes must equal the plain reconstruction over
+     the IDCT kernel's residuals.  Then, per P-step, host prep, H2D copy,
+     automaton, reconstruct and the remainder, and a profile of one step;
+  5b. reconstruct kernel vs its plain version on the card, on that P-step's
+     own dense coefficients, MVs, flags and reference planes (S=1024 CIF)
+     and on random inputs at 177x145: exact;
   6. deblock kernel vs its plain version on the card: the three CIF planes
      at S=1024 and an odd-sized 177x145 plane pair, strengths 0-12 and apply
      flags mixed: exact;
@@ -30,7 +38,9 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      attempt on a P-frame raises PictureFormatInvalid; present_rgba after
      every step.  Sampled streams' planes and RGBA equal the reference
      digests every frame; FMA pixel 156; fixture within +-1 of ffmpeg; all
-     four kernels' launch counters rise.
+     five kernels' launch counters rise (the IDCT kernel's through the same
+     one-step cross-check of the reconstruct kernel as in phase 5: the main
+     path itself no longer writes a residual).
 
 The oracle is `h263_tpu_torch/testdata/reference_digests.json`: SHA-256
 digests of the numpy reference decoder's planes and deblocked RGBA, which
@@ -61,6 +71,7 @@ GOP = 8
 N_CORPORA = 16
 N_QCIF_CORPORA = 4
 SEED = 7
+PROBE_STEP = 3            # the P-step whose reconstruction is cross-checked
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12          # H100 SXM, outside the tensor cores
@@ -173,8 +184,21 @@ def phase_idct(torch, rng):
                 library_ms=None)
 
 
-def phase_automaton(torch, corpora, rng):
+def automaton_inputs(torch, bufs):
+    """The ragged payload and meta of one frame per lane, on the card."""
     from h263_tpu_torch.native import DevicePrepBatch
+
+    S = len(bufs)
+    prep = DevicePrepBatch(S, W, H)
+    total = sum(((len(b) + 3) // 4) * 4 for b in bufs)
+    stage = np.zeros((total // 4 + 1, 4), dtype=np.uint8)
+    meta = np.zeros((6, S), dtype=np.int32)
+    prep.prepare_ragged(bufs, stage, meta)
+    return (torch.as_tensor(stage).to(DEVICE), torch.as_tensor(meta).to(DEVICE),
+            stage.nbytes + meta.nbytes)
+
+
+def phase_automaton(torch, corpora, rng):
     from h263_tpu_torch.parser import automaton_cuda
     from h263_tpu_torch.parser.device_frontend import (
         assemble,
@@ -183,7 +207,7 @@ def phase_automaton(torch, corpora, rng):
     )
 
     S = S_MAIN
-    bufs = []
+    check, clean_p = [], []
     for i in range(S):
         f = corpora[i % N_CORPORA][(i // N_CORPORA) % GOP]
         if i % 8 == 5:                          # truncated in the MB layer
@@ -192,18 +216,18 @@ def phase_automaton(torch, corpora, rng):
             b = bytearray(f)
             b[int(rng.integers(20, len(b)))] ^= int(rng.integers(1, 256))
             f = bytes(b)
-        bufs.append(f)
-    prep = DevicePrepBatch(S, W, H)
-    total = sum(((len(b) + 3) // 4) * 4 for b in bufs)
-    stage = np.zeros((total // 4 + 1, 4), dtype=np.uint8)
-    meta = np.zeros((6, S), dtype=np.int32)
-    prep.prepare_ragged(bufs, stage, meta)
-    payload = torch.as_tensor(stage).to(DEVICE)
-    dmeta = torch.as_tensor(meta).to(DEVICE)
+        check.append(f)
+        clean_p.append(corpora[i % N_CORPORA][1 + (i // N_CORPORA) % (GOP - 1)])
+    payload, dmeta, in_bytes = automaton_inputs(torch, check)
     mbh, mbw = H // 16, W // 16
     kw = dict(mbh=mbh, mbw=mbw, width=W, height=H)
 
-    got = automaton_cuda.parse_assemble_cuda(payload, dmeta, **kw)
+    def run(payload, dmeta):
+        # With the steps each lane took, which the public wrapper drops.
+        return automaton_cuda._parse_assemble(payload, dmeta, mbh, mbw, W, H,
+                                              (0, 0, 0))
+
+    got = run(payload, dmeta)
     # The plain version, as parse_assemble runs it, keeping the number of
     # lockstep steps: the longest lane's serial symbol chain.
     t0 = time.perf_counter()
@@ -226,34 +250,104 @@ def phase_automaton(torch, corpora, rng):
     log(f"automaton: S={S} CIF lanes, statuses {np.bincount(status).tolist()}"
         f" (by code), max_abs_err={err}, lanes that differ "
         f"{torch.nonzero(bad).flatten()[:8].tolist()} "
-        f"({int(bad.sum())} of {S})")
+        f"({int(bad.sum())} of {S}); longest lane: kernel "
+        f"{int(got[4].max())} steps, plain {chain}")
     if err != 0:
         fail("automaton kernel disagrees with its plain version")
     if not (status != 0).any() or not (status == 0).any():
         fail("automaton comparison must hold both ok and errored lanes")
-    ms = cuda_ms(lambda: automaton_cuda.parse_assemble_cuda(
-        payload, dmeta, **kw), 5)
+    if int(got[4].max()) != chain:
+        fail("the kernel's longest lane took other steps than the plain one")
+    del tapes, dense, mvs, inter, want
+
     nmb = mbh * mbw
-    nbytes = (stage.nbytes + meta.nbytes
-              + S * (6 * nmb * 64 * 2 + nmb * 8 * 2 + nmb + 4))
-    b_ms = bytes_bound_ms(nbytes)
+    out_bytes = 6 * nmb * 64 * 2 + nmb * 8 * 2 + nmb + 8
+    ms = b_ms = None
+    for tag, bufs in (("1 lane in 4 cut or flipped, all GOP frames", check),
+                      ("clean P-frames", clean_p)):
+        ref = None
+        for mult in (1, 2):
+            p, m, nbytes = automaton_inputs(torch, bufs * mult)
+            out = run(p, m)
+            torch.cuda.synchronize()
+            if mult == 1:
+                ref = out
+            else:
+                for a, b in zip(out, ref):
+                    if not (torch.equal(a[:S], b) and torch.equal(a[S:], b)):
+                        fail(f"automaton at S={2 * S} ({tag}) differs from "
+                             f"S={S}")
+            t = cuda_ms(lambda: automaton_cuda.parse_assemble_cuda(p, m, **kw),
+                        10)
+            zero = cuda_ms(lambda: torch.zeros_like(out[0]), 10)
+            steps = int(out[4].max())
+            bound = bytes_bound_ms(nbytes + mult * S * out_bytes)
+            log(f"automaton: S={mult * S}, {tag}: {t:.3f} ms per call "
+                f"({zero:.3f} ms of it zeroing the coefficients), "
+                f"{int((out[3] != 0).sum())} errored lanes, longest lane "
+                f"{steps} steps, {(t - zero) * 1e6 / steps:.0f} ns per step;"
+                f" bound: bytes {bound:.4f} ms")
+            if bufs is check and mult == 1:
+                ms, b_ms = t, bound
+            del p, m, out
     log(f"automaton: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms per call "
-        f"(S={S}); bound: bytes {b_ms:.4f} ms ({nbytes} B); longest lane "
-        f"{chain} symbol steps, {ms * 1e6 / chain:.1f} ns per step at the "
-        f"kernel's time")
+        f"(S={S}, the compared set); bound: bytes {b_ms:.4f} ms "
+        f"({in_bytes + S * out_bytes} B)")
     return dict(name="entropy_automaton", route="cuda",
                 source="h263_tpu_torch/csrc/automaton.cu",
                 replaces="docs/retired/parse_pallas.py:91",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by="bytes", library_ms=None, chain_steps=chain)
+                bound_by="bytes", library_ms=None)
 
 
 def kernel_modules():
-    from h263_tpu_torch.ops import deblock_cuda, idct_cuda, yuv_cuda
+    from h263_tpu_torch.ops import (
+        deblock_cuda,
+        idct_cuda,
+        reconstruct_cuda,
+        yuv_cuda,
+    )
     from h263_tpu_torch.parser import automaton_cuda
 
     return {"idct_residual": idct_cuda, "entropy_automaton": automaton_cuda,
-            "deblock": deblock_cuda, "yuv420_to_rgba": yuv_cuda}
+            "deblock": deblock_cuda, "yuv420_to_rgba": yuv_cuda,
+            "reconstruct": reconstruct_cuda}
+
+
+class ReconstructProbe:
+    """Stands in for `device_batch.reconstruct_from_dense` while installed:
+    passes every call on, and on the first call with `n_streams` streams
+    keeps the call's inputs and holds its planes against the earlier design
+    on the same inputs, the plain reconstruction over the IDCT kernel's
+    residuals (which keeps csrc/idct.cu on real main-path data)."""
+
+    def __init__(self, torch, n_streams):
+        from h263_tpu_torch.parallel import device_batch
+
+        self.torch, self.n, self.mod = torch, n_streams, device_batch
+        self.fn = device_batch.reconstruct_from_dense
+        self.inputs = None
+
+    def __enter__(self):
+        self.mod.reconstruct_from_dense = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.reconstruct_from_dense = self.fn
+
+    def __call__(self, *args):
+        from h263_tpu_torch.ops.idct_cuda import idct_residual_cuda
+        from h263_tpu_torch.ops.reconstruct import reconstruct_from_dense_plain
+
+        out = self.fn(*args)
+        if self.inputs is None and args[0].shape[0] == self.n:
+            self.inputs = args
+            want = reconstruct_from_dense_plain(*args, idct=idct_residual_cuda)
+            for name, a, b in zip(("y", "cb", "cr"), out, want):
+                if not self.torch.equal(a, b):
+                    fail(f"reconstruct kernel: plane {name} differs from the "
+                         f"plain reconstruction over the IDCT kernel")
+        return out
 
 
 def reset_launches():
@@ -289,15 +383,21 @@ def phase_decoder(torch, streams, golden, digests):
 
     dec = DeviceFrontendDecoder(S_MAIN, W, H, device=DEVICE)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    step_s = []
+    step_s, peaks = [], []
+    probe = ReconstructProbe(torch, S_MAIN)
     for t in range(GOP):
         bufs = [streams[s][t] for s in lane_stream]
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        y, cb, cr = dec.decode_step(bufs)
+        if t == PROBE_STEP:
+            with probe:
+                y, cb, cr = dec.decode_step(bufs)
+        else:
+            y, cb, cr = dec.decode_step(bufs)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
         st = dec.fetch_status()
         if (st != 0).any():
             fail(f"frame {t}: {int((st != 0).sum())} lanes errored")
@@ -315,25 +415,99 @@ def phase_decoder(torch, streams, golden, digests):
     torch.cuda.synchronize()
     present_s = time.perf_counter() - t0
     launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
     rgba_s = rgba.index_select(0, idx).cpu().numpy()
     for j, lane in enumerate(sampled):
         if rgba_digest(rgba_s[j]) != digests[lane_stream[lane]]["rgba"][-1]:
             fail(f"decoder: lane {lane} RGBA differs from the reference "
                  f"digest")
-    log(f"decoder path: launches during the GOP and present {launches}")
-    if min(launches.values()) < 1:
+    log(f"decoder path: launches during the GOP and present {launches} "
+        f"(the IDCT kernel's is step {PROBE_STEP}'s cross-check)")
+    if min(launches.values()) < 1 or probe.inputs is None:
         fail("a kernel of the decoder path was not launched")
-    fps_all = S_MAIN * GOP / sum(step_s)
-    fps_p = S_MAIN * (GOP - 1) / sum(step_s[1:])
+    # Frames/s over the steps without the cross-check, which costs its
+    # step a second, plain reconstruction.
+    plain_steps = [s for t, s in enumerate(step_s) if t != PROBE_STEP]
+    p_steps = [s for t, s in enumerate(step_s) if t not in (0, PROBE_STEP)]
+    peak = max(p for t, p in enumerate(peaks) if t != PROBE_STEP)
     log(f"decoder path: S={S_MAIN} CIF x {GOP} frames, decode_step "
-        f"{fps_all:.1f} frames/s over the GOP ({fps_p:.1f} over the P-frames;"
-        f" step ms {[round(s * 1e3, 2) for s in step_s]}); present_rgba "
+        f"{S_MAIN * len(plain_steps) / sum(plain_steps):.1f} frames/s over "
+        f"the GOP ({S_MAIN * len(p_steps) / sum(p_steps):.1f} over the "
+        f"P-frames; step ms {[round(s * 1e3, 2) for s in step_s]}, step "
+        f"{PROBE_STEP} with the cross-check); present_rgba "
         f"{S_MAIN / present_s:.1f} frames/s ({present_s * 1e3:.2f} ms); peak "
-        f"device memory {peak / 2**30:.2f} GiB; {len(sampled)} sampled lanes "
+        f"device memory of a step {peak / 2**30:.2f} GiB "
+        f"({peaks[PROBE_STEP] / 2**30:.2f} GiB with the cross-check's plain "
+        f"reconstruction); {len(sampled)} sampled lanes "
         f"x {GOP} frames equal the reference digests (planes) and the last "
         f"frame's RGBA; FMA 156; fixture within +-1")
-    profile_step(torch, dec, [streams[s][GOP - 1] for s in lane_stream])
+    bufs = [streams[s][GOP - 1] for s in lane_stream]
+    split_steps(torch, dec, bufs)
+    profile_step(torch, dec, bufs)
+    return probe.inputs
+
+
+def split_steps(torch, dec, bufs, n=3):
+    """Where a P-frame step's time goes, layer by layer: host prep (host
+    clock around the native header prep), the host-to-device copies (CUDA
+    events: from the prep's end to the automaton's start on the stream),
+    the automaton and the reconstruct kernel with their wrappers (CUDA
+    events), and what remains of the step's wall time (buffer handling,
+    Python, launches, the final synchronise)."""
+    from h263_tpu_torch.parallel import device_batch
+
+    marks = {}
+
+    def event(name):
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+
+    prep, parse, recon = (dec._prep, device_batch.parse_assemble_cuda,
+                          device_batch.reconstruct_from_dense)
+
+    class TimedPrep:
+        def __getattr__(self, name):
+            return getattr(prep, name)
+
+        def prepare_ragged(self, *args):
+            t0 = time.perf_counter()
+            out = prep.prepare_ragged(*args)
+            marks["prep_ms"] = (time.perf_counter() - t0) * 1e3
+            event("prep_end")
+            return out
+
+    def timed_parse(*args, **kwargs):
+        event("parse_start")
+        out = parse(*args, **kwargs)
+        event("parse_end")
+        return out
+
+    def timed_recon(*args):
+        out = recon(*args)
+        event("recon_end")
+        return out
+
+    dec._prep = TimedPrep()
+    device_batch.parse_assemble_cuda = timed_parse
+    device_batch.reconstruct_from_dense = timed_recon
+    try:
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.decode_step(bufs)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            h2d = marks["prep_end"].elapsed_time(marks["parse_start"])
+            auto = marks["parse_start"].elapsed_time(marks["parse_end"])
+            rec = marks["parse_end"].elapsed_time(marks["recon_end"])
+            rest = wall - marks["prep_ms"] - h2d - auto - rec
+            log(f"split: one P-frame step {wall:.2f} ms wall: host prep "
+                f"{marks['prep_ms']:.2f} ms, H2D {h2d:.2f} ms, automaton "
+                f"{auto:.2f} ms, reconstruct {rec:.2f} ms, remainder "
+                f"{rest:.2f} ms")
+    finally:
+        dec._prep = prep
+        device_batch.parse_assemble_cuda = parse
+        device_batch.reconstruct_from_dense = recon
 
 
 def profile_step(torch, dec, bufs):
@@ -366,6 +540,86 @@ def profile_step(torch, dec, bufs):
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         log(f"profile:   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} "
             f"{e.key[:90]}")
+    int64 = [e.key for e in events
+             if "elementwise" in e.key and "long" in e.key]
+    log(f"profile: {len(events)} kernels by name, elementwise kernels on "
+        f"int64: {len(int64)}")
+    if int64:
+        fail(f"a P-frame step still runs int64 elementwise kernels: "
+             f"{int64[:3]}")
+
+
+def phase_reconstruct(torch, rng, real):
+    """The fused reconstruct kernel against its plain version: on a real
+    P-step's inputs (`real`, kept by the decoder phase's probe) and on
+    random inputs at an odd size."""
+    from h263_tpu_torch.ops import reconstruct_cuda
+    from h263_tpu_torch.ops.idct import derive_classes
+    from h263_tpu_torch.ops.reconstruct import reconstruct_from_dense_plain
+    from h263_tpu_torch.types import BLOCK_CLASS_DC, BLOCK_CLASS_FULL, \
+        BLOCK_CLASS_VERT
+
+    h, w = ODD
+    mbh, mbw = -(-h // 16), -(-w // 16)
+    nblk = 6 * mbh * mbw
+    dense = idct_blocks(S_ODD * nblk, rng).reshape(S_ODD, nblk, 64)
+    mvs = rng.integers(-2 * w, 2 * w, (S_ODD, mbh, mbw, 4, 2)).astype(np.int16)
+    mvs[::2] = rng.integers(-9, 10, mvs[::2].shape)
+    inter = rng.random((S_ODD, mbh, mbw)) < 0.8
+    refs = [rng.integers(0, 256, (S_ODD, *hw), dtype=np.uint8)
+            for hw in plane_shapes(h, w)]
+    odd = [torch.as_tensor(a).to(DEVICE) for a in (dense, mvs, inter, *refs)]
+
+    err = 0
+    for tag, args in ((f"S={S_MAIN} CIF, a P-step's own inputs", real),
+                      (f"S={S_ODD} {w}x{h}, random", odd)):
+        got = reconstruct_cuda.reconstruct_from_dense_cuda(*args)
+        want = reconstruct_from_dense_plain(*args)
+        torch.cuda.synchronize()
+        e = max(max_err(torch, a, b) for a, b in zip(got, want))
+        err = max(err, e)
+        moved = int((got[0] != args[3]).any(dim=(1, 2)).sum())
+        log(f"reconstruct: {tag}: max_abs_err={e}, lanes whose luma changed "
+            f"{moved} of {args[0].shape[0]}")
+        if e != 0 or moved == 0:
+            fail("reconstruct kernel disagrees with its plain version (or "
+                 "changed nothing)")
+        del got, want
+    ms = cuda_ms(lambda: reconstruct_cuda.reconstruct_from_dense_cuda(*real),
+                 20)
+    plain_ms = cuda_ms(lambda: reconstruct_from_dense_plain(*real), 3)
+    # What the MVs and the coefficients cost: the same call with every MV
+    # zero (each row's samples then lie in one aligned word, a warp's in two
+    # cache lines), and with zero coefficients as well (a copy).
+    still = (real[0], torch.zeros_like(real[1]), *real[2:])
+    copy = (torch.zeros_like(real[0]), *still[1:])
+    still_ms, copy_ms = (cuda_ms(
+        lambda: reconstruct_cuda.reconstruct_from_dense_cuda(*a), 20)
+        for a in (still, copy))
+    log(f"reconstruct: the same call with all MVs zero {still_ms:.3f} ms, "
+        f"with zero coefficients too {copy_ms:.3f} ms")
+    del still, copy
+    # Bytes: coefficients, MVs, flags and reference planes in, planes out.
+    # Operations: the f32 multiply-adds of each block's class, as the IDCT.
+    cls = torch.bincount(derive_classes(real[0]).flatten().to(torch.int64),
+                         minlength=4).tolist()
+    flops = (2048 * cls[BLOCK_CLASS_FULL] + 192 * cls[BLOCK_CLASS_VERT]
+             + cls[BLOCK_CLASS_DC])
+    nbytes = (sum(t.numel() * t.element_size() for t in real)
+              + sum(t.numel() for t in real[3:]))
+    b_ms = bytes_bound_ms(nbytes)
+    o_ms = flops / FP32_FLOPS * 1e3
+    log(f"reconstruct: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call "
+        f"({real[0].shape[0] * real[0].shape[1]} blocks, classes by code "
+        f"{cls}); bound: bytes {b_ms:.4f} ms ({nbytes} B), f32 operations "
+        f"{o_ms:.4f} ms")
+    return dict(name="reconstruct", route="cuda",
+                source="h263_tpu_torch/csrc/reconstruct.cu",
+                replaces="h263_tpu/ops/idct_pallas.py:34",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations",
+                library_ms=None)
 
 
 def blocky_planes(rng, s, h, w):
@@ -504,16 +758,17 @@ def phase_pool(torch, streams, golden, digests):
                *(f"qcif{j}" for j in range(N_QCIF_CORPORA)), "qcif4"]
 
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     pool = StreamPool(device=DEVICE)
+    probe = ReconstructProbe(torch, S_MAIN)
     for sid, name in seq_of.items():
         pool.add_stream(sid, *streams[name][:2])
     cursor = {sid: 0 for sid in seq_of}
     cif_dec = qcif_n0 = None
     frames_done = 0
-    pool_s, present_s = [], []
+    pool_s, present_s, peaks = [], [], []
     for t in range(GOP):
+        torch.cuda.reset_peak_memory_stats()
         if t == 4:
             for sid in leavers:
                 pool.remove_stream(sid)
@@ -535,7 +790,11 @@ def phase_pool(torch, streams, golden, digests):
                 for sid, name in seq_of.items()
                 if not (sid == absent and t == absent_t)}
         t0 = time.perf_counter()
-        out = pool.decode_step(feed)
+        if t == PROBE_STEP:
+            with probe:
+                out = pool.decode_step(feed)
+        else:
+            out = pool.decode_step(feed)
         torch.cuda.synchronize()
         pool_s.append(time.perf_counter() - t0)
         frames_done += len(feed)
@@ -565,6 +824,7 @@ def phase_pool(torch, streams, golden, digests):
         rgba = pool.present_rgba(deblock=True)
         torch.cuda.synchronize()
         present_s.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
         if set(rgba) != set(seq_of):
             fail("present_rgba does not cover every registered stream")
         for sid in sampled:
@@ -575,12 +835,14 @@ def phase_pool(torch, streams, golden, digests):
                 fail(f"pool: {sid} RGBA ({name} frame {k}) at step {t} "
                      f"differs from the reference digest")
     launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(p for t, p in enumerate(peaks) if t != PROBE_STEP)
     counters = get_counters()
     qcif_n1 = pool._buckets[(176, 144)].dec.n
-    log(f"pool path: launches {launches}; counters {counters}; QCIF bucket "
+    log(f"pool path: launches {launches} (the IDCT kernel's is step "
+        f"{PROBE_STEP}'s cross-check of the CIF bucket); counters {counters}; "
+        f"QCIF bucket "
         f"{qcif_n0} -> {qcif_n1} slots; CIF bucket {cif_dec.n} slots")
-    if min(launches.values()) < 1:
+    if min(launches.values()) < 1 or probe.inputs is None:
         fail("a kernel of the pool path was not launched")
     if qcif_n1 <= qcif_n0 or pool._dims[mover] != (176, 144):
         fail("the rebucketed stream did not grow the QCIF bucket")
@@ -589,11 +851,15 @@ def phase_pool(torch, streams, golden, digests):
     dec_s = cif_dec.decode_step.seconds
     pre_s = cif_dec.present_rgba.seconds
     rest_ms = [round((p - d) * 1e3, 2) for p, d in zip(pool_s[1:], dec_s)]
+    # Rates leave out the step that carries the cross-check's second,
+    # plain reconstruction.
+    own = [s for t, s in enumerate(dec_s, start=1) if t != PROBE_STEP]
     log(f"pool path: {frames_done} frames over {GOP} steps, "
-        f"{frames_done / sum(pool_s):.1f} frames/s (step ms "
+        f"{frames_done / sum(pool_s):.1f} frames/s, step {PROBE_STEP}'s "
+        f"cross-check included (step ms "
         f"{[round(s * 1e3, 2) for s in pool_s]}); CIF bucket ({cif_dec.n} "
-        f"slots): decode over steps 1-{GOP - 1} "
-        f"{cif_dec.n * len(dec_s) / sum(dec_s):.1f} frames/s (ms "
+        f"slots): decode over steps 1-{GOP - 1} but {PROBE_STEP} "
+        f"{cif_dec.n * len(own) / sum(own):.1f} frames/s (ms "
         f"{[round(s * 1e3, 2) for s in dec_s]}), present over steps 0-"
         f"{GOP - 1} "
         f"{cif_dec.n * len(pre_s) / sum(pre_s):.1f} frames/s (ms "
@@ -601,7 +867,9 @@ def phase_pool(torch, streams, golden, digests):
         f" (QCIF bucket, headers, rebucketing) ms {rest_ms}; present_rgba "
         f"of the whole "
         f"pool ms {[round(s * 1e3, 2) for s in present_s]}; peak device "
-        f"memory {peak / 2**30:.2f} GiB; {len(sampled)} sampled streams "
+        f"memory of a step with its present {peak / 2**30:.2f} GiB "
+        f"({peaks[PROBE_STEP] / 2**30:.2f} GiB at step {PROBE_STEP}, with "
+        f"the cross-check); {len(sampled)} sampled streams "
         f"equal the reference digests every frame (planes and RGBA)")
     return launches
 
@@ -646,8 +914,10 @@ def main() -> int:
         fail(f"no reference digests for {missing}")
 
     records = [phase_idct(torch, rng), phase_automaton(torch, cif, rng)]
-    phase_decoder(torch, {k: v[2] for k, v in streams.items()}, golden,
-                  digests)
+    real = phase_decoder(torch, {k: v[2] for k, v in streams.items()}, golden,
+                         digests)
+    records.append(phase_reconstruct(torch, rng, real))
+    del real
     records += [phase_deblock(torch, rng), phase_yuv(torch, rng)]
     launches = phase_pool(torch, streams, golden, digests)
     for mod in ("jax", "h263_tpu"):
@@ -655,6 +925,11 @@ def main() -> int:
             fail(f"{mod} was imported")
     for r in records:
         r["launches"] = launches[r["name"]]
+    log("library_ms is null for every kernel: no single PyTorch call computes "
+        "any of these functions bit-exactly (the IDCT's strict f32 order and "
+        "class paths, with or without the half-pel predictor around it; the "
+        "entropy automaton; the deblock's floor and trunc zones; the 16.16 "
+        "BT.601 with replicated chroma)")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",

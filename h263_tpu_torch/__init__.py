@@ -4,9 +4,9 @@ The JAX package `h263_tpu` stays the reference.  This package imports
 neither it nor `jax`: it keeps its own copies of the host layer it needs
 (bitstream types, VLC tables, the native header prep, the test encoder, the
 FLV demuxer).  What ran on the device runs here as hand-written CUDA
-kernels for Hopper (`csrc/`): the entropy automaton, the sparse-class IDCT,
-the Annex-J deblock and the BT.601 RGBA conversion; motion compensation and
-add-clamp are plain tensor code.
+kernels for Hopper (`csrc/`): the entropy automaton, the fused
+reconstruction (sparse-class IDCT + motion compensation + add-clamp), the
+IDCT on its own, the Annex-J deblock and the BT.601 RGBA conversion.
 
 Entry points, on the card unless the caller names `device="cpu"`:
 `StreamPool()`, the serving pool of Sorenson streams of mixed resolutions

@@ -3,9 +3,13 @@
 // tests to check this very source).  Without __CUDACC__ the two function
 // qualifiers below are empty.
 //
-// One call decodes one lane (one stream's frame) to completion and writes
+// run_lane decodes one lane (one stream's frame) to completion and writes
 // its dense coefficients, MVs and INTER flags straight into the lane's own
-// slices of the outputs; there are no tapes.  Semantics are those of
+// slices of the outputs; there are no tapes.  How a lane reads its words and
+// writes its outputs is its IO type's business (lane_step and run_lane are
+// templates over it): LaneIO below reads the payload in device memory and
+// writes from the one thread that runs it; automaton.cu derives an IO whose
+// threads work as a team.  Semantics are those of
 // h263_tpu/parser/device_frontend.py::make_step + assemble, step for step:
 // the same phases (HEADER/MVD/DC/COEF, then DONE or ERR), the same packed
 // VLC tables, the same status codes and the same EOF/error precedence.
@@ -18,7 +22,8 @@
 //     coefficients; MVs of a macroblock are written when its last MVD
 //     completes (a 4V MB cut by EOF stays INTER with zero MVs);
 //   * a lane that errs becomes the identity frame: zero coefficients, all
-//     INTER, zero MVs.
+//     INTER, zero MVs (run_lane leaves that to its caller: decode_lane here,
+//     a second launch in automaton.cu).
 // The outputs must arrive zeroed (dense, mvs) and set to 1 (inter).
 //
 // Loop bound: every step that does not halt the lane consumes at least one
@@ -88,8 +93,11 @@ struct Lane {
   // automaton
   int phase, mb, blk, zz, quant, cbp, mtype, mvd_k, n_mvd, blk_discard,
       mvd_c, mvd_xtmp, status;
+  // Where macroblock `mb` lies, kept in step with it (next_mb) so that no
+  // step divides: column and row in the picture, slot in the MV ring.
+  int col, line, slot;
   int quad[8];
-  int16_t ring[MAX_RING][8];
+  int16_t* ring;  // MV ring, [mbw + 2][8], zeroed by the caller
 };
 
 struct LaneIO {
@@ -102,21 +110,36 @@ struct LaneIO {
   int16_t* dense;          // this lane's [6*nmb, 64]
   int16_t* mvs;            // this lane's [nmb, 4, 2]
   uint8_t* inter;          // this lane's [nmb]
+
+  // Word `wcur` of the lane (0 past its end), big-endian, from the payload.
+  H263_HD H263_INLINE uint32_t word_from_payload(int wcur) const {
+    if (wcur >= lane_words) return 0u;
+    int64_t idx = base + (wcur < 0 ? 0 : wcur);
+    if (idx < 0) idx = 0;
+    if (idx > n_words - 1) idx = n_words - 1;
+    const uint8_t* p = payload + 4 * idx;
+    return ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16) |
+           ((uint32_t)p[2] << 8) | (uint32_t)p[3];
+  }
+  H263_HD H263_INLINE uint32_t fetch_word(int wcur) {
+    return word_from_payload(wcur);
+  }
+  H263_HD H263_INLINE void store_coef(int64_t off, int val) {
+    dense[off] = (int16_t)val;
+  }
+  H263_HD H263_INLINE void zero_block(int64_t off) {
+    for (int i = 0; i < 64; ++i) dense[off + i] = 0;
+  }
+  H263_HD H263_INLINE void write_mb_mvs(int mb, bool is_inter, const int* q) {
+    inter[mb] = is_inter ? 1 : 0;
+    for (int i = 0; i < 8; ++i) mvs[mb * 8 + i] = (int16_t)q[i];
+  }
 };
 
-H263_HD H263_INLINE uint32_t fetch_word(const LaneIO& io, int wcur) {
-  if (wcur >= io.lane_words) return 0u;
-  int64_t idx = io.base + (wcur < 0 ? 0 : wcur);
-  if (idx < 0) idx = 0;
-  if (idx > io.n_words - 1) idx = io.n_words - 1;
-  const uint8_t* p = io.payload + 4 * idx;
-  return ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16) |
-         ((uint32_t)p[2] << 8) | (uint32_t)p[3];
-}
-
-H263_HD H263_INLINE void refill(Lane& L, const LaneIO& io) {
+template <class IO>
+H263_HD H263_INLINE void refill(Lane& L, IO& io) {
   if (L.valid <= 32) {
-    uint32_t w = fetch_word(io, L.wcur);
+    uint32_t w = io.fetch_word(L.wcur);
     L.hi |= shr32(w, L.valid);
     L.lo |= shl32(w, 32 - L.valid);
     L.valid += 32;
@@ -148,62 +171,79 @@ H263_HD H263_INLINE bool is_intra_type(int mt) {
   return mt == MT_INTRA || mt == MT_INTRA_Q;
 }
 
-// Phase after entering the blocks of MB `mb` (or finishing it).
-H263_HD H263_INLINE int enter_blocks(Lane& L, int mb, int cbp, int mtype) {
+// On to the next macroblock: mb, and its column, row and ring slot
+// (col = mb % mbw, line = mb / mbw, slot = mb % (mbw + 2)).
+H263_HD H263_INLINE void next_mb(Lane& L, const LaneGeometry& g) {
+  L.mb += 1;
+  L.col += 1;
+  if (L.col == g.mbw) {
+    L.col = 0;
+    L.line += 1;
+  }
+  L.slot += 1;
+  if (L.slot == g.mbw + 2) L.slot = 0;
+}
+
+// Phase after entering the blocks of the current MB (or finishing it).
+H263_HD H263_INLINE int enter_blocks(Lane& L, const LaneGeometry& g, int cbp,
+                                     int mtype) {
   bool intra = is_intra_type(mtype);
   int b0 = next_coded_block(cbp, intra, 0);
   bool done = b0 >= 6;
-  L.mb = done ? mb + 1 : mb;
+  if (done) next_mb(L, g);
   L.blk = done ? 0 : b0;
   L.zz = 0;
   L.blk_discard = 0;
   return done ? PH_HEADER : (intra ? PH_DC : PH_COEF);
 }
 
-H263_HD H263_INLINE int advance_block(Lane& L) {
+H263_HD H263_INLINE int advance_block(Lane& L, const LaneGeometry& g) {
   bool intra = is_intra_type(L.mtype);
   int nb = next_coded_block(L.cbp, intra, L.blk + 1);
   bool done = nb >= 6;
-  L.mb = done ? L.mb + 1 : L.mb;
+  if (done) next_mb(L, g);
   L.blk = done ? 0 : nb;
   L.zz = 0;
   L.blk_discard = 0;
   return done ? PH_HEADER : (intra ? PH_DC : PH_COEF);
 }
 
-// Dense offset of block b of MB mb (luma grid row-major, then Cb, then Cr).
-H263_HD H263_INLINE int64_t dense_block(const LaneGeometry& g, int mb, int b) {
+// Dense offset of block b of the current MB (luma grid row-major, then Cb,
+// then Cr).
+H263_HD H263_INLINE int64_t dense_block(const Lane& L, const LaneGeometry& g,
+                                        int b) {
   int nmb = g.mbh * g.mbw;
-  int r = mb / g.mbw, c = mb - (mb / g.mbw) * g.mbw;
+  int r = L.line, c = L.col;
   int blk = b < 4 ? (2 * r + (b >> 1)) * (2 * g.mbw) + 2 * c + (b & 1)
                   : 4 * nmb + (b - 4) * nmb + r * g.mbw + c;
   return (int64_t)blk * 64;
 }
 
-H263_HD H263_INLINE void ring_store(Lane& L, int mb, const int* q, int ring) {
-  int slot = mb % ring;
-  for (int i = 0; i < 8; ++i) L.ring[slot][i] = (int16_t)q[i];
+// The ring holds the MVs of the last mbw + 2 macroblocks, MB m in slot
+// m % (mbw + 2).
+H263_HD H263_INLINE void ring_store(Lane& L, const int* q) {
+  int16_t* slot = L.ring + L.slot * 8;
+  for (int i = 0; i < 8; ++i) slot[i] = (int16_t)q[i];
 }
 
-H263_HD H263_INLINE const int16_t* ring_fetch(const Lane& L, int idx,
-                                              int ring) {
-  return L.ring[(idx < 0 ? 0 : idx) % ring];
-}
-
-H263_HD H263_INLINE void write_mb_mvs(const LaneIO& io, int mb, bool inter,
-                                      const int* q) {
-  io.inter[mb] = inter ? 1 : 0;
-  for (int i = 0; i < 8; ++i) io.mvs[mb * 8 + i] = (int16_t)q[i];
+// The MVs of MB (current - back), for back in 1 .. mbw + 2.  Where that MB
+// does not exist (before the first), the predictor does not use what this
+// returns.
+H263_HD H263_INLINE const int16_t* ring_fetch(const Lane& L,
+                                              const LaneGeometry& g,
+                                              int back) {
+  int slot = L.slot - back;
+  if (slot < 0) slot += g.mbw + 2;
+  return L.ring + slot * 8;
 }
 
 // One automaton step.  The lane must be active (phase < PH_DONE).
-H263_HD inline void lane_step(Lane& L, const LaneIO& io,
-                              const LaneGeometry& g) {
+template <class IO>
+H263_HD inline void lane_step(Lane& L, IO& io, const LaneGeometry& g) {
   refill(L, io);
   const uint32_t hi = L.hi;
   const int rem = io.nbits - L.bitpos;
   const int nmb = g.mbh * g.mbw;
-  const int ring = g.mbw + 2;
   const int32_t* T = io.tables;
   const int mb = L.mb;
   int consumed = 0;
@@ -264,11 +304,12 @@ H263_HD inline void lane_step(Lane& L, const LaneIO& io,
     const bool h_beyond = !uncoded && !stuffing && intra_t && mb >= nmb;
     if (h_beyond && !h_eof && h_err == 0) h_err = ST_BEYOND_NMB;
 
-    // Standard lanes: GOB-resync scan on a soft MCBPC/CBPY error.
+    // Standard lanes: GOB-resync scan on a soft MCBPC/CBPY error (its
+    // verdict is read on such an error only, so only then is it run).
     const bool h_soft = is_std && (h_bad_m || h_bad_y);
     const int align = (8 - (L.bitpos & 7)) & 7;
     int g_dec = 0;
-    for (int s = 0; s < 9; ++s) {
+    for (int s = 0; h_soft && s < 9; ++s) {
       const bool g_eof = s + 17 > rem;
       const bool g_code = peek(hi, s, 17) == 1;
       const int gn = peek(hi, s + 17, 5);
@@ -291,14 +332,14 @@ H263_HD inline void lane_step(Lane& L, const LaneIO& io,
     const int kZero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     if (h_ok && uncoded) {
       for (int i = 0; i < 8; ++i) L.quad[i] = 0;
-      ring_store(L, mb, kZero, ring);
-      if (mb < nmb) write_mb_mvs(io, mb, true, kZero);
+      ring_store(L, kZero);
+      if (mb < nmb) io.write_mb_mvs(mb, true, kZero);
     }
     const bool intra_now = h_ok && !uncoded && !stuffing && intra_t;
     if (intra_now) {
       for (int i = 0; i < 8; ++i) L.quad[i] = 0;
-      ring_store(L, mb, kZero, ring);
-      if (mb < nmb) write_mb_mvs(io, mb, false, kZero);
+      ring_store(L, kZero);
+      if (mb < nmb) io.write_mb_mvs(mb, false, kZero);
     }
     const bool coded_ok = h_ok && !uncoded && !stuffing;
     if (coded_ok) {
@@ -309,8 +350,8 @@ H263_HD inline void lane_step(Lane& L, const LaneIO& io,
     L.mvd_k = 0;
     L.mvd_c = 0;
     L.n_mvd = is_4v ? 4 : 1;
-    if (h_ok && uncoded) L.mb = mb + 1;
-    if (coded_ok && intra_t) new_phase = enter_blocks(L, mb, cbp6, mtype);
+    if (h_ok && uncoded) next_mb(L, g);
+    if (coded_ok && intra_t) new_phase = enter_blocks(L, g, cbp6, mtype);
     if (coded_ok && !intra_t) new_phase = PH_MVD;
 
   } else if (L.phase == PH_MVD) {
@@ -364,17 +405,18 @@ H263_HD inline void lane_step(Lane& L, const LaneIO& io,
     }
 
     const int k = L.n_mvd == 4 ? L.mvd_k : 0;
-    const int col = mb % g.mbw, line = mb / g.mbw;
+    const int col = L.col, line = L.line;
     const bool eol = col == g.mbw - 1;
-    const int16_t* left = ring_fetch(L, mb - 1, ring);
-    const int16_t* above = ring_fetch(L, mb - g.mbw, ring);
-    const int16_t* abover = ring_fetch(L, mb - g.mbw + 1, ring);
+    const int16_t* left = ring_fetch(L, g, 1);
+    const int16_t* above = ring_fetch(L, g, g.mbw);
+    const int16_t* abover = ring_fetch(L, g, g.mbw - 1);
     int pred[2];
     for (int comp = 0; comp < 2; ++comp) {
       const bool k_even = k == 0 || k == 2;
       const bool k_top = k == 0 || k == 1;
+      // k is 1 or 3 where it is odd: the block to the left, within the MB.
       const int mv1 = k_even ? (col == 0 ? 0 : left[(k + 1) * 2 + comp])
-                             : L.quad[(k - 1) * 2 + comp];
+                             : (k == 1 ? L.quad[comp] : L.quad[4 + comp]);
       const int mv2 = k_top ? (line == 0 ? mv1 : above[(k + 2) * 2 + comp])
                             : L.quad[comp];
       const int mv3 = k_top ? (eol ? 0 : (line == 0 ? mv1 : abover[4 + comp]))
@@ -409,14 +451,14 @@ H263_HD inline void lane_step(Lane& L, const LaneIO& io,
     const bool m_beyond = complete && mb >= nmb;
     const bool fail = (m_bad && !m_eof) || m_beyond;
     if (complete) {
-      if (mb < nmb) write_mb_mvs(io, mb, true, L.quad);
-      ring_store(L, mb, L.quad, ring);
+      if (mb < nmb) io.write_mb_mvs(mb, true, L.quad);
+      ring_store(L, L.quad);
     }
     L.mvd_k += pair_now ? 1 : 0;
     L.mvd_c = pair_now ? 0 : 1;
     if (!pair_now) L.mvd_xtmp = d3_val;
     int eb = PH_MVD;
-    if (complete) eb = enter_blocks(L, mb, L.cbp, L.mtype);
+    if (complete) eb = enter_blocks(L, g, L.cbp, L.mtype);
     new_phase = m_eof ? PH_DONE : (fail ? PH_ERR : eb);
     if (fail) err = m_beyond ? ST_BEYOND_NMB : ST_BAD_MVD;
     consumed = m_eof ? 0 : mvd_consumed;
@@ -428,11 +470,10 @@ H263_HD inline void lane_step(Lane& L, const LaneIO& io,
     const bool dc_ok = !d_eof && !d_bad;
     const bool has_coef = (L.cbp >> L.blk) & 1;
     if (dc_ok && mb < nmb)
-      io.dense[dense_block(g, mb, L.blk)] =
-          (int16_t)(dcv == 255 ? 1024 : dcv << 3);
+      io.store_coef(dense_block(L, g, L.blk), dcv == 255 ? 1024 : dcv << 3);
     L.zz = 1;
     int adv = PH_DC;
-    if (dc_ok && !has_coef) adv = advance_block(L);
+    if (dc_ok && !has_coef) adv = advance_block(L, g);
     new_phase = (d_eof || d_bad) ? PH_ERR : (has_coef ? PH_COEF : adv);
     if (d_eof || d_bad) err = d_eof ? ST_EOF_IN_BLOCK : ST_BAD_INTRADC;
     consumed = d_eof ? 0 : 8;
@@ -477,17 +518,16 @@ H263_HD inline void lane_step(Lane& L, const LaneIO& io,
     const bool first_overflow = overflow && L.blk_discard == 0;
     const bool t_ok = !t_eof && !t_bad && !t_esc_zero;
     if (t_ok && mb < nmb) {
-      const int64_t off = dense_block(g, mb, L.blk);
+      const int64_t off = dense_block(L, g, L.blk);
       if (!overflow && L.blk_discard == 0)
-        io.dense[off + T[OFF_ZIGZAG + zz_new]] = (int16_t)val;
-      if (first_overflow)
-        for (int i = 0; i < 64; ++i) io.dense[off + i] = 0;
+        io.store_coef(off + T[OFF_ZIGZAG + zz_new], val);
+      if (first_overflow) io.zero_block(off);
     }
     L.zz = imin(zz_new + 1, 64);
     if (overflow) L.blk_discard = 1;
     const bool t_done = t_ok && last == 1;
     int adv = PH_COEF;
-    if (t_done) adv = advance_block(L);
+    if (t_done) adv = advance_block(L, g);
     const bool bad = t_eof || t_bad || t_esc_zero;
     new_phase = bad ? PH_ERR : adv;
     if (bad) err = t_eof ? ST_EOF_IN_BLOCK
@@ -500,9 +540,13 @@ H263_HD inline void lane_step(Lane& L, const LaneIO& io,
   consume(L, consumed);
 }
 
-// Decode one lane to completion; returns its status.
-H263_HD inline int decode_lane(const LaneIO& io, const LaneGeometry& g,
-                               int start_bit, int quant0) {
+// Run one lane's automaton to its end; returns its status and, in *steps,
+// the steps it took.  `ring` holds (mbw + 2) * 8 zeros.  An errored lane's
+// outputs are left as the steps wrote them: the caller turns them into the
+// identity frame.
+template <class IO>
+H263_HD inline int run_lane(IO& io, const LaneGeometry& g, int start_bit,
+                            int quant0, int16_t* ring, int* steps) {
   Lane L;
   L.hi = L.lo = 0u;
   L.valid = 0;
@@ -510,13 +554,13 @@ H263_HD inline int decode_lane(const LaneIO& io, const LaneGeometry& g,
   L.bitpos = 0;
   L.phase = PH_HEADER;
   L.mb = L.blk = L.zz = 0;
+  L.col = L.line = L.slot = 0;
   L.quant = quant0;
   L.cbp = L.mtype = L.mvd_k = 0;
   L.n_mvd = 1;
   L.blk_discard = L.mvd_c = L.mvd_xtmp = L.status = 0;
   for (int i = 0; i < 8; ++i) L.quad[i] = 0;
-  for (int r = 0; r < g.mbw + 2; ++r)
-    for (int i = 0; i < 8; ++i) L.ring[r][i] = 0;
+  L.ring = ring;
   refill(L, io);
   refill(L, io);
   consume(L, start_bit & 31);
@@ -524,17 +568,28 @@ H263_HD inline int decode_lane(const LaneIO& io, const LaneGeometry& g,
 
   const int64_t span = (int64_t)io.nbits - start_bit;
   const int64_t bound = (span > 0 ? span : 0) + 2;
-  for (int64_t it = 0; it < bound && L.phase < PH_DONE; ++it)
-    lane_step(L, io, g);
+  int64_t it = 0;
+  for (; it < bound && L.phase < PH_DONE; ++it) lane_step(L, io, g);
   if (L.phase < PH_DONE && L.status == 0) L.status = ST_TAPE_OVERFLOW;
+  *steps = (int)it;
+  return L.status;
+}
 
-  if (L.status != ST_OK) {  // identity frame
+// Decode one lane to completion from one thread, identity frame included;
+// returns its status.
+H263_HD inline int decode_lane(LaneIO io, const LaneGeometry& g,
+                               int start_bit, int quant0) {
+  int16_t ring[MAX_RING * 8];
+  for (int i = 0; i < (g.mbw + 2) * 8; ++i) ring[i] = 0;
+  int steps;
+  const int status = run_lane(io, g, start_bit, quant0, ring, &steps);
+  if (status != ST_OK) {  // identity frame
     const int nmb = g.mbh * g.mbw;
     for (int64_t i = 0; i < (int64_t)6 * nmb * 64; ++i) io.dense[i] = 0;
     for (int i = 0; i < nmb * 8; ++i) io.mvs[i] = 0;
     for (int i = 0; i < nmb; ++i) io.inter[i] = 1;
   }
-  return L.status;
+  return status;
 }
 
 }  // namespace h263

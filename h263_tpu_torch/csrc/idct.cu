@@ -3,37 +3,22 @@
 // Replaces the Pallas TPU kernel h263_tpu/ops/idct_pallas.py::_kernel
 // (launched by _build_call, API idct_residual_pallas).  Contract: int16
 // coefficients [n, 64] (row-major 8x8 blocks) -> int32 clipped residuals
-// [n, 64].  The block's class is derived here from its nonzero pattern:
-//   ZERO  no nonzero coefficient             -> 0
-//   DC    only (0,0)                         -> trunc(dc*0.5/4 +- 0.5)
-//   VERT  nonzeros in column 0 only, row>0   -> 1-D IDCT of column 0, then
-//                                               scaled by B00 AFTER the sum
-//   FULL  anything else                      -> two 1-D passes
-// every class rounding as trunc(v/4 +- 0.5) clipped to [-256, 255].
-//
-// Bit-exactness: the reference sums in f32 over frequency 0..7 in order,
-// rounding every product.  Each product and sum here is __fmul_rn /
-// __fadd_rn (never contracted into an FMA), and the library is built with
-// -fmad=false as well.  The block {735, -555, 215} gives 28 at (0,2); an
-// FMA gives 27.
+// [n, 64].  The arithmetic (classes, strict f32 order, rounding) is
+// idct.cuh's idct_block; this kernel only moves the data.
 //
 // Cost: one thread per block; it reads 128 bytes and writes 256 bytes
 // (about 384 bytes per block), against ~1.2k f32 operations, so the kernel
 // is bound by memory bandwidth.  Loads and stores are 16-byte vectors.
-// Fusing it with motion compensation and add-clamp, so that the residual
-// never goes to device memory, is later work.
+// The decoder's main path does not write the residual to device memory at
+// all: reconstruct.cu fuses this transform with the predictor and the
+// add-clamp.  This kernel stays as the counterpart of idct_residual_pallas.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "idct.cuh"
+
 constexpr int kThreads = 128;  // threads per block (>= 64: see the basis load)
-
-
-__device__ __forceinline__ int round_clip(float v) {
-  float biased = __fadd_rn(__fdiv_rn(v, 4.0f), v < 0.0f ? -0.5f : 0.5f);
-  float t = fminf(fmaxf(truncf(biased), -256.0f), 255.0f);
-  return (int)t;
-}
 
 __global__ void idct_residual_kernel(const int16_t* __restrict__ coeffs,
                                      const float* __restrict__ basis,
@@ -45,77 +30,12 @@ __global__ void idct_residual_kernel(const int16_t* __restrict__ coeffs,
   int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= n) return;
 
-  float c[64];
-  bool off_row0 = false, off_col0 = false, any = false;
+  __align__(16) int16_t c[64];
   const int4* src = reinterpret_cast<const int4*>(coeffs + b * 64);
 #pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    int4 q = src[v];
-    const int16_t* h = reinterpret_cast<const int16_t*>(&q);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      int p = v * 8 + j;
-      int16_t x = h[j];
-      c[p] = (float)x;
-      bool nz = x != 0;
-      any |= nz;
-      if (p >= 8) off_row0 |= nz;
-      if ((p & 7) != 0) off_col0 |= nz;
-    }
-  }
-
+  for (int v = 0; v < 8; ++v) *reinterpret_cast<int4*>(c + v * 8) = src[v];
   int res[64];
-  if (!any) {
-#pragma unroll
-    for (int p = 0; p < 64; ++p) res[p] = 0;
-  } else if (!off_row0 && !off_col0) {
-    // DC: exact power-of-two scaling.
-    float dc = c[0];
-    float v = __fdiv_rn(__fmul_rn(dc, 0.5f), 4.0f);
-    float t = fminf(fmaxf(truncf(__fadd_rn(v, dc < 0.0f ? -0.5f : 0.5f)),
-                          -256.0f), 255.0f);
-    int r = (int)t;
-#pragma unroll
-    for (int p = 0; p < 64; ++p) res[p] = r;
-  } else if (!off_col0) {
-    // VERT: 1-D IDCT of column 0, scaled by B00 after the sum.
-#pragma unroll
-    for (int y = 0; y < 8; ++y) {
-      float acc = __fmul_rn(c[0], c_basis[y]);
-#pragma unroll
-      for (int f = 1; f < 8; ++f)
-        acc = __fadd_rn(acc, __fmul_rn(c[f * 8], c_basis[f * 8 + y]));
-      int r = round_clip(__fmul_rn(acc, c_basis[0]));
-#pragma unroll
-      for (int x = 0; x < 8; ++x) res[y * 8 + x] = r;
-    }
-  } else {
-    // FULL: rows first (stage_a[f][x] over each row's frequencies), then
-    // columns (out[y][x] = sum_f stage_a[f][x] * B[f][y]).
-    float a[64];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float acc = __fmul_rn(c[r * 8], c_basis[i]);
-#pragma unroll
-        for (int f = 1; f < 8; ++f)
-          acc = __fadd_rn(acc, __fmul_rn(c[r * 8 + f], c_basis[f * 8 + i]));
-        a[r * 8 + i] = acc;
-      }
-    }
-#pragma unroll
-    for (int y = 0; y < 8; ++y) {
-#pragma unroll
-      for (int x = 0; x < 8; ++x) {
-        float acc = __fmul_rn(a[x], c_basis[y]);
-#pragma unroll
-        for (int f = 1; f < 8; ++f)
-          acc = __fadd_rn(acc, __fmul_rn(a[f * 8 + x], c_basis[f * 8 + y]));
-        res[y * 8 + x] = round_clip(acc);
-      }
-    }
-  }
+  h263::idct_block(c, c_basis, res);
 
   int4* dst = reinterpret_cast<int4*>(out + b * 64);
 #pragma unroll

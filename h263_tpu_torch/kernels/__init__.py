@@ -49,14 +49,19 @@ SIGNATURES = {
     #  device, stream)
     "h263_idct_residual": [_P, _P, ctypes.c_int64, _P, _P],
     # (payload u8, payload_bytes, meta int32 [6,S], S, mbh, mbw, ext_x,
-    #  ext_y, tables int32, dense, mvs, inter, status, stream)
+    #  ext_y, tables int32, dense, mvs, inter, status, lanes_per_warp,
+    #  lanes_per_block, shared_tables (all 0: chosen from S), stream)
     "h263_automaton": [_P, ctypes.c_int64, _P, _I, _I, _I, _I, _I, _P,
-                       _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _I, _I, _I, _P],
     # (planes u8 [S,h,w], out u8 [S,h,w], S, h, w, strength int32 [S],
     #  apply u8 [S], stream)
     "h263_deblock": [_P, _P, _I, _I, _I, _P, _P, _P],
     # (y u8 [S,h,w], cb, cr u8 [S,ch,cw], out u8 [S,h,w,4], S, h, w, stream)
     "h263_yuv_rgba": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (dense int16 [S,6*nmb,64], mvs int16 [S,mbh,mbw,4,2], inter u8
+    #  [S,mbh,mbw], ref y/cb/cr u8, out y/cb/cr u8, S, mbh, mbw, h, w,
+    #  basis f32 [64] on the device, stream)
+    "h263_reconstruct": [_P] * 9 + [_I] * 5 + [_P, _P],
 }
 
 _lock = threading.Lock()

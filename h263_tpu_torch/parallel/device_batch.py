@@ -5,7 +5,7 @@ frame step, ragged payload only.  Per step:
 
     native header prep (host) -> one host-to-device copy of the ragged
     payload + int32 meta [6, S] -> entropy automaton (CUDA kernel) ->
-    IDCT (CUDA kernel) + motion compensation + add-clamp -> planes
+    IDCT + motion compensation + add-clamp (one CUDA kernel) -> planes
 
 The reference planes stay on the device.  Errored lanes emit the identity
 frame, so their previous picture persists (the reference's whole-picture

@@ -13,9 +13,17 @@ torch = pytest.importorskip("torch")
 
 from h263_tpu_torch import DeviceFrontendDecoder  # noqa: E402
 from h263_tpu_torch.native import DevicePrepBatch  # noqa: E402
-from h263_tpu_torch.ops import deblock_cuda, idct_cuda, yuv_cuda  # noqa: E402
+from h263_tpu_torch.ops import (  # noqa: E402
+    deblock_cuda,
+    idct_cuda,
+    reconstruct_cuda,
+    yuv_cuda,
+)
 from h263_tpu_torch.ops.deblock import deblock_batched  # noqa: E402
 from h263_tpu_torch.ops.idct import idct_residual_fused  # noqa: E402
+from h263_tpu_torch.ops.reconstruct import (  # noqa: E402
+    reconstruct_from_dense_plain,
+)
 from h263_tpu_torch.ops.yuv import yuv420_to_rgba  # noqa: E402
 from h263_tpu_torch.parallel.pool import StreamPool  # noqa: E402
 from h263_tpu_torch.parser import automaton_cuda  # noqa: E402
@@ -46,6 +54,46 @@ def test_idct_kernel_matches_plain(cuda):
     np.testing.assert_array_equal(
         got, idct_residual_fused(torch.as_tensor(c)).numpy())
     assert got[2999].reshape(8, 8)[0, 2] == 28
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(16, 16), (33, 47), (144, 176), (145, 177),
+                                  (288, 352)])
+def test_reconstruct_kernel_matches_plain(cuda, size):
+    """Every IDCT class and the FMA block in every plane, MVs of all four
+    half-pel cases that reach outside every edge, 4V and INTRA macroblocks."""
+    h, w = size
+    rng = np.random.default_rng(h * 1000 + w)
+    S = 5
+    mbh, mbw = -(-h // 16), -(-w // 16)
+    nblk = 6 * mbh * mbw
+    dense = np.zeros((S, nblk, 64), dtype=np.int16)
+    kind = rng.integers(0, 5, (S, nblk))
+    dense[kind == 1, 0] = rng.integers(-2048, 2048, int((kind == 1).sum()))
+    dense[kind == 2, ::8] = rng.integers(-400, 400, (int((kind == 2).sum()), 8))
+    dense[kind == 3] = rng.integers(-300, 300, (int((kind == 3).sum()), 64))
+    dense[kind == 4, :8] = rng.integers(-2048, 2048,
+                                        (int((kind == 4).sum()), 8))
+    for blk in (0, nblk - 1):
+        dense[0, blk] = 0
+        dense[0, blk, [2, 3, 18]] = 735, -555, 215          # FMA block
+    reach = 2 * max(h, w) + 9
+    mvs = rng.integers(-reach, reach + 1, (S, mbh, mbw, 4, 2)).astype(np.int16)
+    mvs[1::2] = rng.integers(-9, 10, mvs[1::2].shape)
+    inter = rng.random((S, mbh, mbw)) < 0.75
+    inter[0, 0, 0] = False
+    refs = [rng.integers(0, 256, (S, ph, pw), dtype=np.uint8)
+            for ph, pw in ((h, w), ((h + 1) // 2, (w + 1) // 2),
+                           ((h + 1) // 2, (w + 1) // 2))]
+    args = [torch.as_tensor(a) for a in (dense, mvs, inter, *refs)]
+    before = reconstruct_cuda.launches
+    got = reconstruct_cuda.reconstruct_from_dense_cuda(
+        *[a.to(cuda) for a in args])
+    assert reconstruct_cuda.launches == before + 1
+    want = reconstruct_from_dense_plain(*args)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    assert int(got[0][0, 0, 2]) == 28
 
 
 @pytest.mark.gpu
