@@ -21,15 +21,20 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      (vs its golden luma); sampled lanes' planes and RGBA equal the reference
      digests; every kernel's launch counter rises.  On one P-step the fused
      reconstruct kernel's planes must equal the plain reconstruction over
-     the IDCT kernel's residuals.  Then, per P-step, host prep, H2D copy,
-     automaton, reconstruct and the remainder, and a profile of one step;
+     the IDCT kernel's residuals, and one present's RGBA (the fused present
+     kernel) must equal the YUV kernel's over the deblock kernel's planes.
+     Then, per P-step, host prep, H2D copy, automaton, reconstruct and the
+     remainder, and a profile of one step;
   5b. reconstruct kernel vs its plain version on the card, on that P-step's
      own dense coefficients, MVs, flags and reference planes (S=1024 CIF)
      and on random inputs at 177x145: exact;
   6. deblock kernel vs its plain version on the card: the three CIF planes
-     at S=1024 and an odd-sized 177x145 plane pair, strengths 0-12 and apply
-     flags mixed: exact;
+     at S=1024, an odd-sized 177x145 picture and a few 1280x720 pictures
+     (wider than a column tile), strengths 0-12 and apply flags mixed: exact;
   7. YUV->RGBA kernel vs its plain version, the same way: exact;
+  7b. fused present kernel vs its plain version (deblock of the three planes,
+     then RGBA) at the same three sizes, and on the planes, strengths and
+     flags the decoder path ended with: exact;
   8. the pool path, this slice's main path: StreamPool(frontend="device")
      over an 8-frame GOP with a CIF bucket of 1024 streams and a QCIF bucket
      of 64; after frame 3, 32 CIF streams leave and 32 join (recycled slots,
@@ -38,9 +43,9 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      attempt on a P-frame raises PictureFormatInvalid; present_rgba after
      every step.  Sampled streams' planes and RGBA equal the reference
      digests every frame; FMA pixel 156; fixture within +-1 of ffmpeg; all
-     five kernels' launch counters rise (the IDCT kernel's through the same
-     one-step cross-check of the reconstruct kernel as in phase 5: the main
-     path itself no longer writes a residual).
+     six kernels' launch counters rise (the IDCT kernel's, and the deblock
+     and YUV kernels', through the same one-step cross-checks as in phase 5:
+     the main path itself writes no residual and no deblocked plane).
 
 The oracle is `h263_tpu_torch/testdata/reference_digests.json`: SHA-256
 digests of the numpy reference decoder's planes and deblocked RGBA, which
@@ -64,8 +69,10 @@ import numpy as np
 S_MAIN = 1024
 S_QCIF = 64
 S_ODD = 64
+S_WIDE = 8
 N_LEAVE = 32
 ODD = (145, 177)          # luma rows, columns of the odd-sized check
+WIDE = (720, 1280)        # wider than one column tile of the present kernels
 W, H = 352, 288
 GOP = 8
 N_CORPORA = 16
@@ -304,6 +311,7 @@ def kernel_modules():
     from h263_tpu_torch.ops import (
         deblock_cuda,
         idct_cuda,
+        present_cuda,
         reconstruct_cuda,
         yuv_cuda,
     )
@@ -311,7 +319,7 @@ def kernel_modules():
 
     return {"idct_residual": idct_cuda, "entropy_automaton": automaton_cuda,
             "deblock": deblock_cuda, "yuv420_to_rgba": yuv_cuda,
-            "reconstruct": reconstruct_cuda}
+            "reconstruct": reconstruct_cuda, "present_rgba": present_cuda}
 
 
 class ReconstructProbe:
@@ -347,6 +355,44 @@ class ReconstructProbe:
                 if not self.torch.equal(a, b):
                     fail(f"reconstruct kernel: plane {name} differs from the "
                          f"plain reconstruction over the IDCT kernel")
+        return out
+
+
+class PresentProbe:
+    """Stands in for `device_batch.present_rgba_batched` while installed:
+    passes every call on, and on the first call with `n_streams` streams
+    holds its RGBA against the YUV kernel's over the deblock kernel's planes
+    on the same inputs (which keeps csrc/deblock.cu and csrc/yuv.cu on real
+    main-path data).  With `keep` it keeps that call's inputs."""
+
+    def __init__(self, torch, n_streams, keep=False):
+        from h263_tpu_torch.parallel import device_batch
+
+        self.torch, self.n, self.mod = torch, n_streams, device_batch
+        self.fn = device_batch.present_rgba_batched
+        self.keep, self.checked, self.inputs = keep, False, None
+
+    def __enter__(self):
+        self.mod.present_rgba_batched = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.present_rgba_batched = self.fn
+
+    def __call__(self, y, cb, cr, strength, apply):
+        from h263_tpu_torch.ops.deblock_cuda import deblock_batched_cuda
+        from h263_tpu_torch.ops.yuv_cuda import yuv420_to_rgba_cuda
+
+        out = self.fn(y, cb, cr, strength, apply)
+        if not self.checked and y.shape[0] == self.n:
+            self.checked = True
+            if self.keep:
+                self.inputs = (y, cb, cr, strength, apply)
+            want = yuv420_to_rgba_cuda(*(
+                deblock_batched_cuda(p, strength, apply) for p in (y, cb, cr)))
+            if not self.torch.equal(out, want):
+                fail("present kernel: RGBA differs from the YUV kernel's over "
+                     "the deblock kernel's planes")
         return out
 
 
@@ -410,6 +456,9 @@ def phase_decoder(torch, streams, golden, digests):
         if int(kept[0][1][0, 2]) != (156 if t else 128):
             fail(f"decoder: FMA lane pixel (0,2) is {int(kept[0][1][0, 2])}")
         check_fixture_luma(kept[0][0], golden[t], f"decoder frame {t}")
+    with PresentProbe(torch, S_MAIN, keep=True) as present_probe:
+        dec.present_rgba(deblock=True)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     rgba = dec.present_rgba(deblock=True)
     torch.cuda.synchronize()
@@ -420,10 +469,14 @@ def phase_decoder(torch, streams, golden, digests):
         if rgba_digest(rgba_s[j]) != digests[lane_stream[lane]]["rgba"][-1]:
             fail(f"decoder: lane {lane} RGBA differs from the reference "
                  f"digest")
-    log(f"decoder path: launches during the GOP and present {launches} "
-        f"(the IDCT kernel's is step {PROBE_STEP}'s cross-check)")
-    if min(launches.values()) < 1 or probe.inputs is None:
+    log(f"decoder path: launches during the GOP and two presents {launches} "
+        f"(the IDCT kernel's is step {PROBE_STEP}'s cross-check, the deblock "
+        f"and YUV kernels' the first present's)")
+    if (min(launches.values()) < 1 or probe.inputs is None
+            or not present_probe.checked):
         fail("a kernel of the decoder path was not launched")
+    if launches["present_rgba"] != 2:
+        fail("a present must launch the present kernel once")
     # Frames/s over the steps without the cross-check, which costs its
     # step a second, plain reconstruction.
     plain_steps = [s for t, s in enumerate(step_s) if t != PROBE_STEP]
@@ -443,7 +496,7 @@ def phase_decoder(torch, streams, golden, digests):
     bufs = [streams[s][GOP - 1] for s in lane_stream]
     split_steps(torch, dec, bufs)
     profile_step(torch, dec, bufs)
-    return probe.inputs
+    return probe.inputs, present_probe.inputs
 
 
 def split_steps(torch, dec, bufs, n=3):
@@ -637,21 +690,24 @@ def plane_shapes(h, w):
     return [(h, w), ((h + 1) // 2, (w + 1) // 2), ((h + 1) // 2, (w + 1) // 2)]
 
 
+def present_inputs(torch, rng, s, h, w):
+    """Blocky planes of s 4:2:0 pictures, strengths 0-12 and ~75% of the
+    apply flags set, on the card."""
+    planes = [torch.as_tensor(blocky_planes(rng, s, *hw)).to(DEVICE)
+              for hw in plane_shapes(h, w)]
+    strength = torch.as_tensor(rng.integers(0, 13, s).astype(np.int32)
+                               ).to(DEVICE)
+    apply = torch.as_tensor(rng.random(s) < 0.75).to(DEVICE)
+    return planes, strength, apply
+
+
 def phase_deblock(torch, rng):
     from h263_tpu_torch.ops import deblock_cuda
     from h263_tpu_torch.ops.deblock import deblock_batched
 
-    def inputs(s, h, w):
-        planes = [torch.as_tensor(blocky_planes(rng, s, *hw)).to(DEVICE)
-                  for hw in plane_shapes(h, w)]
-        strength = torch.as_tensor(rng.integers(0, 13, s).astype(np.int32)
-                                   ).to(DEVICE)
-        apply = torch.as_tensor(rng.random(s) < 0.75).to(DEVICE)
-        return planes, strength, apply
-
     err = 0
-    for s, (h, w) in ((S_MAIN, (H, W)), (S_ODD, ODD)):
-        planes, strength, apply = inputs(s, h, w)
+    for s, (h, w) in ((S_MAIN, (H, W)), (S_ODD, ODD), (S_WIDE, WIDE)):
+        planes, strength, apply = present_inputs(torch, rng, s, h, w)
         for p in planes:
             got = deblock_cuda.deblock_batched_cuda(p, strength, apply)
             want = deblock_batched(p, strength, apply)
@@ -663,7 +719,7 @@ def phase_deblock(torch, rng):
             if e != 0 or changed == 0:
                 fail("deblock kernel disagrees with its plain version (or "
                      "changed nothing)")
-    planes, strength, apply = inputs(S_MAIN, H, W)
+    planes, strength, apply = present_inputs(torch, rng, S_MAIN, H, W)
 
     def kernel():
         for p in planes:
@@ -718,6 +774,54 @@ def phase_yuv(torch, rng):
                 bound_by="bytes", library_ms=None)
 
 
+def phase_present(torch, rng, real):
+    """The fused present kernel against its plain version: on blocky planes
+    at three sizes and on the planes, strengths and flags the decoder path
+    ended with (`real`, kept by its present probe)."""
+    from h263_tpu_torch.ops import present_cuda
+    from h263_tpu_torch.ops.present import present_rgba_plain
+
+    err = 0
+    cases = [(f"S={s} luma {hw}, blocky", present_inputs(torch, rng, s, *hw))
+             for s, hw in ((S_MAIN, (H, W)), (S_ODD, ODD), (S_WIDE, WIDE))]
+    cases.append((f"S={S_MAIN} CIF, the decoder path's last planes",
+                  (real[:3], *real[3:])))
+    for tag, (planes, strength, apply) in cases:
+        got = present_cuda.present_rgba_cuda(*planes, strength, apply)
+        want = present_rgba_plain(*planes, strength, apply)
+        e = max_err(torch, got, want)
+        err = max(err, e)
+        off = present_rgba_plain(*planes, strength, torch.zeros_like(apply))
+        changed = int((want != off).any(dim=(1, 2, 3)).sum())
+        log(f"present_rgba: {tag}: max_abs_err={e}, lanes the deblock "
+            f"changed {changed} of {planes[0].shape[0]}")
+        if e != 0 or changed == 0:
+            fail("present kernel disagrees with its plain version (or the "
+                 "deblock changed nothing)")
+        del got, want, off
+    planes, strength, apply = cases[0][1]
+    ms = cuda_ms(lambda: present_cuda.present_rgba_cuda(*planes, strength,
+                                                        apply), 20)
+    plain_ms = cuda_ms(lambda: present_rgba_plain(*planes, strength, apply), 3)
+    # The same call with no stream deblocked: the loads, the conversion and
+    # the stores alone.
+    none = torch.zeros_like(apply)
+    copy_ms = cuda_ms(lambda: present_cuda.present_rgba_cuda(*planes, strength,
+                                                             none), 20)
+    nbytes = (sum(p.numel() for p in planes) + 4 * planes[0].numel()
+              + S_MAIN * 5)
+    b_ms = bytes_bound_ms(nbytes)
+    log(f"present_rgba: kernel {ms:.3f} ms ({copy_ms:.3f} ms with no stream "
+        f"deblocked), plain {plain_ms:.3f} ms for {S_MAIN} CIF frames; bound: "
+        f"bytes {b_ms:.4f} ms ({nbytes} B)")
+    return dict(name="present_rgba", route="cuda",
+                source="h263_tpu_torch/csrc/present.cu",
+                replaces="h263_tpu/ops/deblock_pallas.py:75 + "
+                         "h263_tpu/ops/yuv_pallas.py:23",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by="bytes", library_ms=None)
+
+
 class _Timed:
     """Host wall time of a bound method, synchronised on both sides."""
 
@@ -761,6 +865,7 @@ def phase_pool(torch, streams, golden, digests):
     reset_launches()
     pool = StreamPool(device=DEVICE)
     probe = ReconstructProbe(torch, S_MAIN)
+    present_probe = PresentProbe(torch, S_MAIN)
     for sid, name in seq_of.items():
         pool.add_stream(sid, *streams[name][:2])
     cursor = {sid: 0 for sid in seq_of}
@@ -821,7 +926,11 @@ def phase_pool(torch, streams, golden, digests):
         for sid in feed:
             cursor[sid] += 1
         t0 = time.perf_counter()
-        rgba = pool.present_rgba(deblock=True)
+        if t == PROBE_STEP:
+            with present_probe:
+                rgba = pool.present_rgba(deblock=True)
+        else:
+            rgba = pool.present_rgba(deblock=True)
         torch.cuda.synchronize()
         present_s.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated())
@@ -838,22 +947,32 @@ def phase_pool(torch, streams, golden, digests):
     peak = max(p for t, p in enumerate(peaks) if t != PROBE_STEP)
     counters = get_counters()
     qcif_n1 = pool._buckets[(176, 144)].dec.n
-    log(f"pool path: launches {launches} (the IDCT kernel's is step "
-        f"{PROBE_STEP}'s cross-check of the CIF bucket); counters {counters}; "
-        f"QCIF bucket "
+    log(f"pool path: launches {launches} (the IDCT kernel's, and the deblock "
+        f"and YUV kernels', are step {PROBE_STEP}'s cross-checks of the CIF "
+        f"bucket); counters {counters}; QCIF bucket "
         f"{qcif_n0} -> {qcif_n1} slots; CIF bucket {cif_dec.n} slots")
-    if min(launches.values()) < 1 or probe.inputs is None:
+    if (min(launches.values()) < 1 or probe.inputs is None
+            or not present_probe.checked):
         fail("a kernel of the pool path was not launched")
+    if launches["present_rgba"] != 2 * GOP:
+        fail("each bucket's present must launch the present kernel once")
     if qcif_n1 <= qcif_n0 or pool._dims[mover] != (176, 144):
         fail("the rebucketed stream did not grow the QCIF bucket")
     if cif_dec is not pool._buckets[(W, H)].dec:
         fail("the CIF bucket grew; its joiners should recycle slots")
     dec_s = cif_dec.decode_step.seconds
     pre_s = cif_dec.present_rgba.seconds
+    # What the per-stream views of one bucket's batch cost on the host.
+    batch = torch.empty((cif_dec.n, H, W, 4), dtype=torch.uint8, device=DEVICE)
+    t0 = time.perf_counter()
+    views = dict(zip(range(cif_dec.n), batch.unbind(0)))
+    views_ms = (time.perf_counter() - t0) * 1e3
+    del batch, views
     rest_ms = [round((p - d) * 1e3, 2) for p, d in zip(pool_s[1:], dec_s)]
     # Rates leave out the step that carries the cross-check's second,
     # plain reconstruction.
     own = [s for t, s in enumerate(dec_s, start=1) if t != PROBE_STEP]
+    pre_own = [s for t, s in enumerate(pre_s) if t != PROBE_STEP]
     log(f"pool path: {frames_done} frames over {GOP} steps, "
         f"{frames_done / sum(pool_s):.1f} frames/s, step {PROBE_STEP}'s "
         f"cross-check included (step ms "
@@ -861,12 +980,14 @@ def phase_pool(torch, streams, golden, digests):
         f"slots): decode over steps 1-{GOP - 1} but {PROBE_STEP} "
         f"{cif_dec.n * len(own) / sum(own):.1f} frames/s (ms "
         f"{[round(s * 1e3, 2) for s in dec_s]}), present over steps 0-"
-        f"{GOP - 1} "
-        f"{cif_dec.n * len(pre_s) / sum(pre_s):.1f} frames/s (ms "
-        f"{[round(s * 1e3, 2) for s in pre_s]}); the rest of each pool step"
+        f"{GOP - 1} but {PROBE_STEP} "
+        f"{cif_dec.n * len(pre_own) / sum(pre_own):.1f} frames/s (ms "
+        f"{[round(s * 1e3, 2) for s in pre_s]}, step {PROBE_STEP} with the "
+        f"cross-check); the rest of each pool step"
         f" (QCIF bucket, headers, rebucketing) ms {rest_ms}; present_rgba "
         f"of the whole "
-        f"pool ms {[round(s * 1e3, 2) for s in present_s]}; peak device "
+        f"pool ms {[round(s * 1e3, 2) for s in present_s]} (the views of "
+        f"a {cif_dec.n}-frame batch alone: {views_ms:.2f} ms); peak device "
         f"memory of a step with its present {peak / 2**30:.2f} GiB "
         f"({peaks[PROBE_STEP] / 2**30:.2f} GiB at step {PROBE_STEP}, with "
         f"the cross-check); {len(sampled)} sampled streams "
@@ -914,11 +1035,13 @@ def main() -> int:
         fail(f"no reference digests for {missing}")
 
     records = [phase_idct(torch, rng), phase_automaton(torch, cif, rng)]
-    real = phase_decoder(torch, {k: v[2] for k, v in streams.items()}, golden,
-                         digests)
+    real, real_present = phase_decoder(
+        torch, {k: v[2] for k, v in streams.items()}, golden, digests)
     records.append(phase_reconstruct(torch, rng, real))
     del real
-    records += [phase_deblock(torch, rng), phase_yuv(torch, rng)]
+    records += [phase_deblock(torch, rng), phase_yuv(torch, rng),
+                phase_present(torch, rng, real_present)]
+    del real_present
     launches = phase_pool(torch, streams, golden, digests)
     for mod in ("jax", "h263_tpu"):
         if mod in sys.modules:
@@ -929,7 +1052,8 @@ def main() -> int:
         "any of these functions bit-exactly (the IDCT's strict f32 order and "
         "class paths, with or without the half-pel predictor around it; the "
         "entropy automaton; the deblock's floor and trunc zones; the 16.16 "
-        "BT.601 with replicated chroma)")
+        "BT.601 with replicated chroma, with or without that deblock before "
+        "it)")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",

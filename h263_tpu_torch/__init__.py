@@ -6,7 +6,8 @@ neither it nor `jax`: it keeps its own copies of the host layer it needs
 FLV demuxer).  What ran on the device runs here as hand-written CUDA
 kernels for Hopper (`csrc/`): the entropy automaton, the fused
 reconstruction (sparse-class IDCT + motion compensation + add-clamp), the
-IDCT on its own, the Annex-J deblock and the BT.601 RGBA conversion.
+fused presentation (Annex-J deblock of the three planes + BT.601 RGBA), and
+the IDCT, the deblock and the RGBA conversion each on its own.
 
 Entry points, on the card unless the caller names `device="cpu"`:
 `StreamPool()`, the serving pool of Sorenson streams of mixed resolutions

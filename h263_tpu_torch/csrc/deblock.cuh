@@ -1,7 +1,8 @@
-// The arithmetic of the Annex-J deblocking filter, shared by the CUDA kernel
-// (deblock.cu, built by nvcc) and a host build (g++, used by the CPU tests
-// against h263_tpu/ops/deblock.py::golden_deblock).  Without __CUDACC__ the
-// function qualifiers below are empty.
+// The arithmetic of the Annex-J deblocking filter, shared by the CUDA kernels
+// (deblock.cu and present.cu through deblock_tile.cuh, built by nvcc) and a
+// host build (g++, used by the CPU tests against h263_tpu/ops/deblock.py::
+// golden_deblock).  Without __CUDACC__ the function qualifiers below are
+// empty.
 //
 // One quartet A, B, C, D (four samples across an edge) is updated as the
 // reference does (deblock.rs:29-42 / :99-127):
@@ -22,7 +23,8 @@
 //   vertical edges, only when w >= 10: chunks k < (w-2)/8, quartet columns
 //     8k+6 .. 8k+9; rows < 8*(h/8) floor zone, the rest trunc;
 //   the vertical pass reads the horizontal pass's output.
-// Quartets of one pass never overlap, so each pass is parallel over them.
+// Quartets of one pass never overlap, so each pass is parallel over them;
+// deblock_tile.cuh cuts the plane into tiles that no quartet crosses.
 
 #pragma once
 
@@ -72,51 +74,6 @@ DEBLOCK_HD void deblock_quartet(int& a, int& b, int& c, int& d, int strength,
   b = nb;
   c = nc;
   d = nd;
-}
-
-// Rows of horizontal band `band`: [8*band - 2, 8*band + 6) cut to [0, h).
-// The band's first four rows are the quartet of edge ey = 8*band when that
-// edge exists; the others are copied.
-DEBLOCK_HD int deblock_n_bands(int h) { return (h + 2 + 7) / 8; }
-
-// Horizontal pass of one column x of one band: reads `src`, writes `dst`
-// (both h x w, row pitch w).  strength <= 0 copies.
-DEBLOCK_HD void deblock_h_band_column(const uint8_t* src, uint8_t* dst,
-                                      int h, int w, int band, int x,
-                                      int strength) {
-  const int ey = 8 * band;
-  const int y0 = ey - 2 < 0 ? 0 : ey - 2;
-  const int y1 = ey + 6 > h ? h : ey + 6;
-  const bool edge = strength > 0 && ey >= 8 && ey <= h - 2;
-  int first_copy = y0;
-  if (edge) {
-    int a = src[(int64_t)(ey - 2) * w + x];
-    int b = src[(int64_t)(ey - 1) * w + x];
-    int c = src[(int64_t)ey * w + x];
-    int d = src[(int64_t)(ey + 1) * w + x];
-    deblock_quartet(a, b, c, d, strength, x < (w / 8) * 8);
-    dst[(int64_t)(ey - 2) * w + x] = (uint8_t)a;
-    dst[(int64_t)(ey - 1) * w + x] = (uint8_t)b;
-    dst[(int64_t)ey * w + x] = (uint8_t)c;
-    dst[(int64_t)(ey + 1) * w + x] = (uint8_t)d;
-    first_copy = ey + 2;
-  }
-  for (int y = first_copy; y < y1; ++y)
-    dst[(int64_t)y * w + x] = src[(int64_t)y * w + x];
-}
-
-DEBLOCK_HD int deblock_n_chunks(int w) { return w >= 10 ? (w - 2) / 8 : 0; }
-
-// Vertical pass of one row y of one chunk k, in place on `p` (h x w).
-DEBLOCK_HD void deblock_v_row_chunk(uint8_t* p, int h, int w, int y, int k,
-                                    int strength) {
-  uint8_t* q = p + (int64_t)y * w + 8 * k + 6;
-  int a = q[0], b = q[1], c = q[2], d = q[3];
-  deblock_quartet(a, b, c, d, strength, y < (h / 8) * 8);
-  q[0] = (uint8_t)a;
-  q[1] = (uint8_t)b;
-  q[2] = (uint8_t)c;
-  q[3] = (uint8_t)d;
 }
 
 }  // namespace h263

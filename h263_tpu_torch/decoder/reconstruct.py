@@ -6,21 +6,21 @@ Port of the device tail of `h263_tpu/decoder/reconstruct.py`:
 
 `reconstruct_from_dense` runs the IDCT, the motion compensation and the
 add-clamp as one CUDA kernel (`ops/reconstruct_cuda.py`), and
-`present_rgba_batched` the deblock and BT.601 conversion through theirs
-(`ops/deblock_cuda.py`, `ops/yuv_cuda.py`) — on a CUDA tensor the kernel, on
-a CPU tensor its plain version — as the JAX package ran the Pallas kernels
-on the TPU.  The plain reconstruction (`reconstruct_from_residuals`) lives in
-`ops/reconstruct.py`.
+`present_rgba_batched` the deblock of the three planes and the BT.601
+conversion as one more (`ops/present_cuda.py`) — on a CUDA tensor the
+kernel, on a CPU tensor its plain version — where the JAX package ran its
+Pallas kernels on the TPU.  The deblock and the conversion alone are
+`ops/deblock_cuda.py` and `ops/yuv_cuda.py`.  The plain reconstruction
+(`reconstruct_from_residuals`) lives in `ops/reconstruct.py`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.deblock_cuda import deblock_batched_cuda
+from ..ops.present_cuda import present_rgba_cuda
 from ..ops.reconstruct import reconstruct_from_residuals  # noqa: F401
 from ..ops.reconstruct_cuda import reconstruct_from_dense_cuda
-from ..ops.yuv_cuda import yuv420_to_rgba_cuda
 
 
 def reconstruct_from_dense(dense, mvs, inter, ref_y, ref_cb, ref_cr):
@@ -35,8 +35,7 @@ def present_rgba_batched(y, cb, cr, strength, apply_deblock):
     """Optional per-stream deblock + BT.601 RGBA.  y uint8 [S, H, W]; cb/cr
     uint8 [S, ch, cw]; strength int32 [S]; apply_deblock bool [S] ->
     RGBA uint8 [S, H, W, 4]."""
-    strength = strength.to(torch.int32).contiguous()
-    apply_deblock = apply_deblock.to(torch.bool).contiguous()
-    y, cb, cr = (deblock_batched_cuda(p.contiguous(), strength, apply_deblock)
-                 for p in (y, cb, cr))
-    return yuv420_to_rgba_cuda(y, cb, cr)
+    return present_rgba_cuda(
+        y.contiguous(), cb.contiguous(), cr.contiguous(),
+        strength.to(torch.int32).contiguous(),
+        apply_deblock.to(torch.bool).contiguous())

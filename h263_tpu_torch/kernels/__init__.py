@@ -58,6 +58,9 @@ SIGNATURES = {
     "h263_deblock": [_P, _P, _I, _I, _I, _P, _P, _P],
     # (y u8 [S,h,w], cb, cr u8 [S,ch,cw], out u8 [S,h,w,4], S, h, w, stream)
     "h263_yuv_rgba": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (y u8 [S,h,w], cb, cr u8 [S,ch,cw], out u8 [S,h,w,4], S, h, w,
+    #  strength int32 [S], apply u8 [S], stream)
+    "h263_present_rgba": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # (dense int16 [S,6*nmb,64], mvs int16 [S,mbh,mbw,4,2], inter u8
     #  [S,mbh,mbw], ref y/cb/cr u8, out y/cb/cr u8, S, mbh, mbw, h, w,
     #  basis f32 [64] on the device, stream)

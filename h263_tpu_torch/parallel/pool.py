@@ -380,7 +380,7 @@ class StreamPool:
         for bucket in self._buckets.values():
             if not bucket.slots:
                 continue
-            rgba = bucket.dec.present_rgba(deblock)
+            frames = bucket.dec.present_rgba(deblock).unbind(0)
             for sid, slot in bucket.slots.items():
-                out[sid] = rgba[slot]
+                out[sid] = frames[slot]
         return out

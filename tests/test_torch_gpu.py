@@ -12,15 +12,20 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from h263_tpu_torch import DeviceFrontendDecoder  # noqa: E402
+from h263_tpu_torch.decoder.reconstruct import (  # noqa: E402
+    present_rgba_batched,
+)
 from h263_tpu_torch.native import DevicePrepBatch  # noqa: E402
 from h263_tpu_torch.ops import (  # noqa: E402
     deblock_cuda,
     idct_cuda,
+    present_cuda,
     reconstruct_cuda,
     yuv_cuda,
 )
 from h263_tpu_torch.ops.deblock import deblock_batched  # noqa: E402
 from h263_tpu_torch.ops.idct import idct_residual_fused  # noqa: E402
+from h263_tpu_torch.ops.present import present_rgba_plain  # noqa: E402
 from h263_tpu_torch.ops.reconstruct import (  # noqa: E402
     reconstruct_from_dense_plain,
 )
@@ -135,6 +140,83 @@ def test_deblock_kernel_matches_plain(cuda, shape):
                                   deblock_batched(*args).numpy())
 
 
+def _present_inputs(shape, S=13):
+    """Blocky and noisy lanes of a 4:2:0 picture, strengths 0-12, ~70% of
+    the apply flags set."""
+    h, w = shape
+    rng = np.random.default_rng(h * 1000 + w)
+    planes = [rng.integers(0, 256, (S, *hw), dtype=np.uint8)
+              for hw in ((h, w), ((h + 1) // 2, (w + 1) // 2),
+                         ((h + 1) // 2, (w + 1) // 2))]
+    for p in planes:
+        p[::2] = p[::2] // 16 * 16 + 5                # flat blocks, edges
+    strength = (np.arange(S) % 13).astype(np.int32)
+    apply = rng.random(S) < 0.7
+    apply[:3] = True
+    return [torch.as_tensor(a) for a in (*planes, strength, apply)]
+
+
+PRESENT_SHAPES = [(16, 16), (33, 47), (144, 176), (145, 177), (720, 1280)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PRESENT_SHAPES)
+def test_present_kernel_matches_plain(cuda, shape):
+    args = _present_inputs(shape)
+    counted = (present_cuda, deblock_cuda, yuv_cuda)
+    before = [m.launches for m in counted]
+    got = present_rgba_batched(*[a.to(cuda) for a in args])
+    # One launch of the fused kernel, none of the two it fuses.
+    assert [m.launches for m in counted] == [before[0] + 1, *before[1:]]
+    want = present_rgba_plain(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (want != present_rgba_plain(*args[:4], torch.zeros_like(args[4]))
+            ).any()                                   # the deblock acted
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PRESENT_SHAPES)
+def test_one_pass_deblock_matches_plain_on_three_planes(cuda, shape):
+    *planes, strength, apply = _present_inputs(shape)
+    for p in planes:
+        got = deblock_cuda.deblock_batched_cuda(
+            p.to(cuda), strength.to(cuda), apply.to(cuda))
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), deblock_batched(p, strength, apply).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(33, 47), (144, 176)])
+def test_present_kernels_take_planes_at_any_address(cuda, shape):
+    """Planes that start 1, 2 and 3 bytes into their storage: no row is
+    aligned like the output's."""
+    y, cb, cr, strength, apply = _present_inputs(shape, S=3)
+    moved = []
+    for k, p in enumerate((y, cb, cr), start=1):
+        flat = torch.zeros(p.numel() + k, dtype=torch.uint8, device=cuda)
+        flat[k:] = p.flatten().to(cuda)
+        moved.append(flat[k:].view(p.shape))
+    st, ap = strength.to(cuda), apply.to(cuda)
+    np.testing.assert_array_equal(
+        present_cuda.present_rgba_cuda(*moved, st, ap).cpu().numpy(),
+        present_rgba_plain(y, cb, cr, strength, apply).numpy())
+    np.testing.assert_array_equal(
+        deblock_cuda.deblock_batched_cuda(moved[0], st, ap).cpu().numpy(),
+        deblock_batched(y, strength, apply).numpy())
+
+
+@pytest.mark.gpu
+def test_ptxas_report_lists_the_present_kernels(cuda, capsys):
+    from h263_tpu_torch.kernels import ptxas_report
+
+    assert ptxas_report.main() == 0
+    out = capsys.readouterr().out
+    for kernel in ("deblock_kernel", "present_kernel"):
+        lines = [ln for ln in out.splitlines() if kernel in ln]
+        assert any("registers" in ln and "smem" in ln for ln in lines), out
+        assert any("0 bytes spill stores" in ln for ln in lines), out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 1), (17, 11), (9, 130), (145, 177),
                                    (288, 352)])
@@ -161,6 +243,10 @@ def test_wrappers_refuse_tensors_on_two_devices(cuda):
     c = torch.zeros((2, 8, 8), dtype=torch.uint8)
     with pytest.raises(ValueError):
         yuv_cuda.yuv420_to_rgba_cuda(p, c, c)
+    with pytest.raises(ValueError):
+        present_cuda.present_rgba_cuda(
+            p, c.to(cuda), c.to(cuda), torch.ones(2, dtype=torch.int32),
+            torch.ones(2, dtype=torch.bool, device=cuda))
 
 
 @pytest.mark.gpu
