@@ -45,7 +45,28 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      digests every frame; FMA pixel 156; fixture within +-1 of ffmpeg; all
      six kernels' launch counters rise (the IDCT kernel's, and the deblock
      and YUV kernels', through the same one-step cross-checks as in phase 5:
-     the main path itself writes no residual and no deblocked plane).
+     the main path itself writes no residual and no deblocked plane);
+  9. the K-frame window on the decoder path: DeviceFrontendDecoder(1024, 352,
+     288) over phase 5's GOP as one window of 8, two of 4 and eight of 1,
+     planes and statuses equal (torch.equal) at every frame to sequential
+     decode_step calls, with one automaton launch per window and one
+     reconstruct launch per frame; the window's one automaton launch over
+     8192 lanes equal to its 8 per-frame launches (on the GOP and on a set
+     with one lane in four cut or flipped).  Printed: the automaton at 8192
+     lanes for every launch shape of kernels/automaton_sweep.py, the output
+     fills, a window's split (host prep, H2D, automaton, each reconstruct),
+     a window against 8 steps, frames/s of back-to-back loops of windows
+     and of steps, the device idle share of those loops (torch.profiler),
+     the stage timers of utils/trace.py, peak memory;
+  10. the pool path in windows of 4 (phase 8's traffic): churn between the
+     windows, a stream absent inside one, a refused P-frame rebucket, and a
+     window that holds the CIF->QCIF I-frame rebucket, which falls back to
+     decode_step calls (counted); sampled streams equal the reference
+     digests every frame; then frames/s of a GOP of the pool's traffic back
+     to back, in windows and in steps.
+
+The kernels line's launch counts are those of phases 8, 9 and 10 (each run
+with the counts set to 0 just before it).
 
 The oracle is `h263_tpu_torch/testdata/reference_digests.json`: SHA-256
 digests of the numpy reference decoder's planes and deblocked RGBA, which
@@ -79,6 +100,9 @@ N_CORPORA = 16
 N_QCIF_CORPORA = 4
 SEED = 7
 PROBE_STEP = 3            # the P-step whose reconstruction is cross-checked
+WINDOW = 4                # frames per window on the pool's window path
+N_LOOP = 8                # GOPs of a back-to-back loop
+N_PROFILE = 3             # GOPs of a profiled loop
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12          # H100 SXM, outside the tensor cores
@@ -494,25 +518,27 @@ def phase_decoder(torch, streams, golden, digests):
         f"x {GOP} frames equal the reference digests (planes) and the last "
         f"frame's RGBA; FMA 156; fixture within +-1")
     bufs = [streams[s][GOP - 1] for s in lane_stream]
-    split_steps(torch, dec, bufs)
+    split_calls(torch, dec, lambda: dec.decode_step(bufs),
+                "one P-frame step")
     profile_step(torch, dec, bufs)
     return probe.inputs, present_probe.inputs
 
 
-def split_steps(torch, dec, bufs, n=3):
-    """Where a P-frame step's time goes, layer by layer: host prep (host
-    clock around the native header prep), the host-to-device copies (CUDA
-    events: from the prep's end to the automaton's start on the stream),
-    the automaton and the reconstruct kernel with their wrappers (CUDA
-    events), and what remains of the step's wall time (buffer handling,
-    Python, launches, the final synchronise)."""
+def split_calls(torch, dec, call, tag, n=3):
+    """Where a decode call's time goes, layer by layer: host prep (host
+    clock around the native header prep, summed over a window's frames),
+    the host-to-device copies (CUDA events: from the prep's end to the
+    automaton's start on the stream), the automaton with its wrapper and
+    each reconstruct launch (CUDA events), and what remains of the call's
+    wall time (buffer handling, Python, launches, the final synchronise)."""
     from h263_tpu_torch.parallel import device_batch
 
-    marks = {}
+    marks, recon_ev = {}, []
 
-    def event(name):
-        marks[name] = torch.cuda.Event(enable_timing=True)
-        marks[name].record()
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
 
     prep, parse, recon = (dec._prep, device_batch.parse_assemble_cuda,
                           device_batch.reconstruct_from_dense)
@@ -524,19 +550,19 @@ def split_steps(torch, dec, bufs, n=3):
         def prepare_ragged(self, *args):
             t0 = time.perf_counter()
             out = prep.prepare_ragged(*args)
-            marks["prep_ms"] = (time.perf_counter() - t0) * 1e3
-            event("prep_end")
+            marks["prep_ms"] += (time.perf_counter() - t0) * 1e3
+            marks["prep_end"] = event()
             return out
 
     def timed_parse(*args, **kwargs):
-        event("parse_start")
+        marks["parse_start"] = event()
         out = parse(*args, **kwargs)
-        event("parse_end")
+        marks["parse_end"] = event()
         return out
 
-    def timed_recon(*args):
-        out = recon(*args)
-        event("recon_end")
+    def timed_recon(*args, **kwargs):
+        out = recon(*args, **kwargs)
+        recon_ev.append(event())
         return out
 
     dec._prep = TimedPrep()
@@ -544,18 +570,22 @@ def split_steps(torch, dec, bufs, n=3):
     device_batch.reconstruct_from_dense = timed_recon
     try:
         for _ in range(n):
+            marks["prep_ms"] = 0.0
+            recon_ev.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            dec.decode_step(bufs)
+            call()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
             h2d = marks["prep_end"].elapsed_time(marks["parse_start"])
             auto = marks["parse_start"].elapsed_time(marks["parse_end"])
-            rec = marks["parse_end"].elapsed_time(marks["recon_end"])
-            rest = wall - marks["prep_ms"] - h2d - auto - rec
-            log(f"split: one P-frame step {wall:.2f} ms wall: host prep "
+            recs = [a.elapsed_time(b) for a, b in
+                    zip([marks["parse_end"]] + recon_ev[:-1], recon_ev)]
+            rest = wall - marks["prep_ms"] - h2d - auto - sum(recs)
+            rec = " + ".join(f"{r:.3f}" for r in recs)
+            log(f"split: {tag} {wall:.2f} ms wall: host prep "
                 f"{marks['prep_ms']:.2f} ms, H2D {h2d:.2f} ms, automaton "
-                f"{auto:.2f} ms, reconstruct {rec:.2f} ms, remainder "
+                f"{auto:.2f} ms, reconstruct {rec} ms, remainder "
                 f"{rest:.2f} ms")
     finally:
         dec._prep = prep
@@ -823,16 +853,19 @@ def phase_present(torch, rng, real):
 
 
 class _Timed:
-    """Host wall time of a bound method, synchronised on both sides."""
+    """Host wall time of a bound method, synchronised on both sides (or,
+    with sync=False, the host time of the call alone)."""
 
-    def __init__(self, torch, fn):
-        self.torch, self.fn, self.seconds, self.calls = torch, fn, [], 0
+    def __init__(self, torch, fn, sync=True):
+        self.torch, self.fn, self.sync, self.seconds = torch, fn, sync, []
 
     def __call__(self, *args, **kwargs):
-        self.torch.cuda.synchronize()
+        if self.sync:
+            self.torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = self.fn(*args, **kwargs)
-        self.torch.cuda.synchronize()
+        if self.sync:
+            self.torch.cuda.synchronize()
         self.seconds.append(time.perf_counter() - t0)
         return out
 
@@ -995,6 +1028,373 @@ def phase_pool(torch, streams, golden, digests):
     return launches
 
 
+def device_busy_ms(prof) -> float:
+    """Milliseconds in which the card ran anything (kernels, copies, fills)
+    in a torch.profiler trace: the union of the device events' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def phase_window(torch, streams, digests):
+    """The K-frame window on the decoder path: DeviceFrontendDecoder(1024,
+    352, 288) over the GOP as one T=8 window, as two T=4 windows and as
+    eight T=1 windows, each equal at every frame to sequential decode_step
+    calls; the window's one automaton launch over 8192 lanes against its 8
+    per-frame launches; and where the window's time goes."""
+    from h263_tpu_torch import DeviceFrontendDecoder
+    from h263_tpu_torch.kernels.automaton_sweep import (WINDOW_SHAPES,
+                                                        stage_window,
+                                                        window_inputs)
+    from h263_tpu_torch.parser import automaton_cuda
+    from h263_tpu_torch.testing.corpora import planes_digest
+    from h263_tpu_torch.utils import trace
+
+    lane_stream = (["fixture"] * 4 + ["fma"] * 4
+                   + [f"c{i % N_CORPORA}" for i in range(8, S_MAIN)])
+    sampled = [0, 4, *range(8, 8 + N_CORPORA), S_MAIN - 1]
+    idx = torch.tensor(sampled, device=DEVICE)
+    lists = [[streams[s][t] for s in lane_stream] for t in range(GOP)]
+
+    seq = DeviceFrontendDecoder(S_MAIN, W, H, device=DEVICE)
+    ref = []
+    for bufs in lists:
+        ref.append((*seq.decode_step(bufs), seq.last_status))
+    del seq
+    launches = {}
+    for T in (GOP, GOP // 2, 1):
+        dec = DeviceFrontendDecoder(S_MAIN, W, H, device=DEVICE)
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = [(*dec.decode_steps(lists[w0:w0 + T]), dec.last_status_steps)
+                for w0 in range(0, GOP, T)]
+        torch.cuda.synchronize()
+        got = read_launches()
+        if (got["entropy_automaton"] != GOP // T
+                or got["reconstruct"] != GOP):
+            fail(f"window T={T}: launches {got}: one automaton launch per "
+                 f"window and one reconstruct launch per frame expected")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        for t in range(GOP):
+            ys, cbs, crs, st = outs[t // T]
+            y, cb, cr, s = ref[t]
+            k = t % T
+            if not (torch.equal(ys[k], y) and torch.equal(cbs[k], cb)
+                    and torch.equal(crs[k], cr) and torch.equal(st[k], s)):
+                fail(f"window T={T}: frame {t} differs from the sequential "
+                     f"step")
+            if T == GOP:
+                kept = [p[k].index_select(0, idx).cpu().numpy()
+                        for p in (ys, cbs, crs)]
+                for j, lane in enumerate(sampled):
+                    if planes_digest(*(q[j] for q in kept)) != \
+                            digests[lane_stream[lane]]["planes"][t]:
+                        fail(f"window: lane {lane} frame {t} differs from "
+                             f"the reference digest")
+        del outs, dec
+    del ref
+    log(f"window: S={S_MAIN} CIF x {GOP} frames as 1 window of {GOP}, 2 of "
+        f"{GOP // 2} and {GOP} of 1: planes and statuses equal to sequential "
+        f"decode_step at every frame, {len(sampled)} sampled lanes equal the "
+        f"reference digests; launches {launches}")
+
+    # The window's automaton launch against its per-frame launches (not
+    # counted: the main path's counts were read above).
+    mbh, mbw = H // 16, W // 16
+    rng = np.random.default_rng(SEED + 1)
+    for tag, (payload, meta) in (
+            ("the GOP", stage_window(torch, lists, DEVICE)),
+            ("1 lane in 4 cut or flipped",
+             window_inputs(torch, GOP, S_MAIN, True, rng, DEVICE))):
+        one = automaton_cuda._parse_assemble(payload, meta, mbh, mbw, W, H,
+                                             (0, 0, 0))
+        for t in range(GOP):
+            per = automaton_cuda._parse_assemble(payload, meta[t], mbh, mbw,
+                                                 W, H, (0, 0, 0))
+            if not all(torch.equal(a[t], b) for a, b in zip(one, per)):
+                fail(f"window automaton ({tag}): frame {t} of the launch over "
+                     f"{GOP * S_MAIN} lanes differs from its own launch")
+        log(f"window automaton ({tag}): one launch over {GOP * S_MAIN} lanes "
+            f"equals {GOP} launches of {S_MAIN} (dense, MVs, INTER, status, "
+            f"steps); {int((one[3] != 0).sum())} errored lanes, longest lane "
+            f"{int(one[4].max())} steps")
+        del one, per
+
+    payload, meta = stage_window(torch, lists, DEVICE)
+    per_frame_ms = cuda_ms(lambda: [automaton_cuda._parse_assemble(
+        payload, meta[t], mbh, mbw, W, H, (0, 0, 0)) for t in range(GOP)], 5)
+    nmb = mbh * mbw
+    lanes = GOP * S_MAIN
+
+    def fills():
+        torch.zeros((lanes, 6 * nmb, 64), dtype=torch.int16, device=DEVICE)
+        torch.zeros((lanes, mbh, mbw, 4, 2), dtype=torch.int16, device=DEVICE)
+        torch.ones((lanes, mbh, mbw), dtype=torch.uint8, device=DEVICE)
+
+    fill_ms = cuda_ms(fills, 5)
+    shapes = []
+    for shape in [(0, 0, 0)] + [(lpw, n, 0) for lpw, n in WINDOW_SHAPES]:
+        try:
+            ms = cuda_ms(lambda: automaton_cuda._parse_assemble(
+                payload, meta, mbh, mbw, W, H, shape), 5)
+        except RuntimeError:
+            torch.cuda.synchronize()
+            shapes.append(f"{shape[0]}/{shape[1]}: refused")
+            continue
+        shapes.append(f"{shape[0]}/{shape[1]}: {ms:.3f}")
+    log(f"window automaton: {GOP} per-frame launches {per_frame_ms:.3f} ms; "
+        f"one launch over {lanes} lanes by shape (lanes per warp/lanes per "
+        f"block, 0/0 = the launcher's choice: ms) {shapes}; the output fills "
+        f"of those lanes {fill_ms:.3f} ms")
+    del payload, meta
+
+    dec = DeviceFrontendDecoder(S_MAIN, W, H, device=DEVICE)
+    for _ in range(2):          # both staging buffers grown to a window's
+        dec.decode_steps(lists)
+    split_calls(torch, dec, lambda: dec.decode_steps(lists),
+                f"one T={GOP} window")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dec.decode_steps(lists)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    # A window against eight steps, one call at a time, in turns.
+    walls = {"steps": [], "window": []}
+    for kind in ("steps", "window", "window", "steps", "steps", "window"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "window":
+            dec.decode_steps(lists)
+        else:
+            for bufs in lists:
+                dec.decode_step(bufs)
+        torch.cuda.synchronize()
+        walls[kind].append(round((time.perf_counter() - t0) * 1e3, 2))
+    log(f"window: one T={GOP} window ms {walls['window']} against {GOP} "
+        f"decode_step calls ms {walls['steps']} (each synchronised at its "
+        f"end); peak device memory of a window {peak / 2**30:.2f} GiB")
+
+    # Back to back: several GOPs, one synchronise at the end.
+    def loop(kind, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if kind == "window":
+                dec.decode_steps(lists)
+            else:
+                for bufs in lists:
+                    dec.decode_step(bufs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    rates = {"steps": [], "window": []}
+    waits = trace.get_counters().get("staging_reclaim_waits", 0)
+    for kind in ("steps", "window", "window", "steps"):
+        s = loop(kind, N_LOOP)
+        rates[kind].append(round(N_LOOP * GOP * S_MAIN / s, 1))
+    waits = trace.get_counters().get("staging_reclaim_waits", 0) - waits
+    idle = {}
+    from torch.profiler import ProfilerActivity, profile
+    for kind in ("window", "steps"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s = loop(kind, N_PROFILE)
+        busy = device_busy_ms(prof)
+        idle[kind] = (round(s * 1e3, 2), round(busy, 2),
+                      round(1 - busy / (s * 1e3), 4))
+    trace.reset_metrics()
+    trace.trace_enabled(True)
+    try:
+        loop("window", N_PROFILE)
+    finally:
+        trace.trace_enabled(False)
+    metrics = trace.get_metrics()
+    log(f"window: back to back, {N_LOOP} GOPs of {S_MAIN} CIF streams, one "
+        f"synchronise at the end: windows of {GOP} {rates['window']} "
+        f"frames/s, decode_step {rates['steps']} frames/s; the host waited "
+        f"for a staging buffer {waits} times")
+    log(f"window: device idle share under torch.profiler, {N_PROFILE} GOPs "
+        f"back to back (loop ms, device busy ms, idle share): windows "
+        f"{idle['window']}, decode_step {idle['steps']}")
+    log(f"window: stage timers (host clock) of {N_PROFILE} windows: "
+        f"{json.dumps(metrics)}")
+    del dec
+    return launches
+
+
+def phase_pool_window(torch, streams, golden, digests):
+    """The pool path in windows of 4 frames: the pool phase's traffic with
+    churn between the windows, a stream absent inside a window, a window
+    that holds a CIF->QCIF I-frame rebucket (it falls back to decode_step
+    calls) and a refused P-frame rebucket between windows."""
+    from h263_tpu_torch.parallel.pool import StreamPool
+    from h263_tpu_torch.testing.corpora import planes_digest, rgba_digest
+    from h263_tpu_torch.types import PictureFormatInvalid
+    from h263_tpu_torch.utils.trace import get_counters
+
+    seq_of = {}
+    for i in range(S_MAIN):
+        seq_of[f"cif{i}"] = ("fixture" if i < 4 else "fma" if i < 8
+                             else f"c{i % N_CORPORA}")
+    for j in range(S_QCIF):
+        seq_of[f"qcif{j}"] = f"q{j % N_QCIF_CORPORA}"
+    leavers = [f"cif{i}" for i in range(64, 64 + N_LEAVE)]
+    joiners = {f"join{k}": f"c{k % N_CORPORA}" for k in range(N_LEAVE)}
+    absent, absent_t = "cif17", 6                 # inside the second window
+    mover, move_t, move_to = "cif16", 2, "q0"     # the first window falls back
+    refused = "cif48"                             # between the windows
+    sampled = ["cif0", "cif4", *(f"cif{i}" for i in range(8, 8 + N_CORPORA)),
+               "cif48", f"cif{S_MAIN - 1}", "join0", "join1", "join16",
+               *(f"qcif{j}" for j in range(N_QCIF_CORPORA)), "qcif4"]
+
+    torch.cuda.synchronize()
+    reset_launches()
+    fallbacks = get_counters().get("pool_window_fallbacks", 0)
+    pool = StreamPool(device=DEVICE)
+    for sid, name in seq_of.items():
+        pool.add_stream(sid, *streams[name][:2])
+    cursor = {sid: 0 for sid in seq_of}
+    walls, frames_done, window_launches = [], 0, None
+    cif_dec = None
+    for w0 in range(0, GOP, WINDOW):
+        if w0:
+            for sid in leavers:
+                pool.remove_stream(sid)
+                del seq_of[sid], cursor[sid]
+            for sid, name in joiners.items():
+                pool.add_stream(sid, W, H)
+                seq_of[sid], cursor[sid] = name, 0
+            try:
+                pool.decode_steps([{refused: streams["q1"][2][1]}])
+                fail("a rebucket on a P-frame was accepted")
+            except PictureFormatInvalid as e:
+                log(f"pool window: a P-frame rebucket was refused ({e})")
+            cif_dec = pool._buckets[(W, H)].dec
+            cif_dec.decode_steps = _Timed(torch, cif_dec.decode_steps)
+        dicts, names = [], []
+        for t in range(w0, w0 + WINDOW):
+            if t == move_t:
+                seq_of[mover], cursor[mover] = move_to, 0
+            feed = {sid: streams[name][2][cursor[sid]]
+                    for sid, name in seq_of.items()
+                    if not (sid == absent and t == absent_t)}
+            names.append({sid: (seq_of[sid], cursor[sid]) for sid in feed})
+            for sid in feed:
+                cursor[sid] += 1
+            dicts.append(feed)
+        before = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = pool.decode_steps(dicts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        frames_done += sum(len(d) for d in dicts)
+        after = read_launches()
+        if w0:
+            window_launches = {k: after[k] - before[k] for k in after}
+            if (window_launches["entropy_automaton"] != 2
+                    or window_launches["reconstruct"] != 2 * WINDOW):
+                fail(f"pool window: launches {window_launches}; one "
+                     f"automaton launch per bucket and one reconstruct "
+                     f"launch per frame and bucket expected")
+        for k, (feed, named) in enumerate(zip(dicts, names)):
+            if set(outs[k]) != set(feed):
+                fail(f"pool window at {w0}: frame {k} has results for "
+                     f"{len(outs[k])} streams, fed {len(feed)}")
+            for sid in sampled:
+                if sid not in feed:
+                    continue
+                name, c = named[sid]
+                y, cb, cr = outs[k][sid]
+                if planes_digest(y, cb, cr) != digests[name]["planes"][c]:
+                    fail(f"pool window: {sid} ({name} frame {c}) at step "
+                         f"{w0 + k} differs from the reference digest")
+                if name == "fma" and int(y[0, 2]) != (156 if c else 128):
+                    fail(f"pool window: FMA pixel (0,2) is {int(y[0, 2])}")
+                if name == "fixture":
+                    check_fixture_luma(y, golden[c], f"pool window {w0 + k}")
+        rgba = pool.present_rgba(deblock=True)
+        for sid in sampled:
+            if sid not in seq_of:
+                continue
+            name, c = seq_of[sid], cursor[sid] - 1
+            if rgba_digest(rgba[sid].cpu().numpy()) != digests[name]["rgba"][c]:
+                fail(f"pool window: {sid} RGBA ({name} frame {c}) after the "
+                     f"window at {w0} differs from the reference digest")
+        del outs, rgba
+    # Steady state, back to back: every stream restarts its sequence on
+    # its I-frame, windows of 4 against decode_step calls, one synchronise
+    # at the end of each round of a GOP.  The buckets' calls are timed on
+    # the host clock alone (no synchronise), to split the host's time
+    # between the buckets' calls and the pool's own work.
+    dec_s = cif_dec.decode_steps.seconds
+    del cif_dec.decode_steps                      # the synchronising timer
+    timers = []
+    for b in pool._buckets.values():
+        for name in ("decode_step", "decode_steps"):
+            t = _Timed(torch, getattr(b.dec, name), sync=False)
+            setattr(b.dec, name, t)
+            timers.append(t)
+    gop = [{sid: streams[name][2][t] for sid, name in seq_of.items()}
+           for t in range(GOP)]
+    rounds = {"steps": [], "window": []}
+    for kind in ("steps", "window", "window", "steps", "steps", "window"):
+        for t in timers:
+            t.seconds.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "window":
+            for w0 in range(0, GOP, WINDOW):
+                pool.decode_steps(gop[w0:w0 + WINDOW])
+        else:
+            for d in gop:
+                pool.decode_step(d)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        inside = sum(sum(t.seconds) for t in timers)
+        rounds[kind].append((round(GOP * len(seq_of) / wall, 1),
+                             round(wall * 1e3, 2), round(host * 1e3, 2),
+                             round(inside * 1e3, 2)))
+    for b in pool._buckets.values():
+        del b.dec.decode_step, b.dec.decode_steps
+    launches = read_launches()
+    fell_back = get_counters().get("pool_window_fallbacks", 0) - fallbacks
+    log(f"pool window: launches {launches} (second window alone "
+        f"{window_launches}); windows that fell back to decode_step "
+        f"{fell_back}")
+    if fell_back != 2:
+        fail("the window with the rebucket and the one-frame window of the "
+             "refused rebucket must fall back, and only they")
+    if min(launches[k] for k in ("entropy_automaton", "reconstruct",
+                                 "present_rgba")) < 1:
+        fail("a kernel of the pool window path was not launched")
+    cif_rate = cif_dec.n * WINDOW / dec_s[-1]
+    log(f"pool window: {frames_done} frames in {len(walls)} windows of "
+        f"{WINDOW}, window ms {[round(s * 1e3, 2) for s in walls]} (the "
+        f"first by decode_step calls, for the rebucket), the second "
+        f"{sum(len(d) for d in dicts) / walls[-1]:.1f} frames/s; its CIF "
+        f"bucket's decode_steps ms {[round(s * 1e3, 2) for s in dec_s]} "
+        f"({cif_rate:.1f} frames/s); {len(sampled)} "
+        f"sampled streams equal the reference digests every frame (planes, "
+        f"and RGBA after each window)")
+    log(f"pool window: back to back, a GOP of the {len(seq_of)} streams "
+        f"after the churn, one synchronise at its end (frames/s, wall ms, "
+        f"host ms until the synchronise, of it inside the buckets' decode "
+        f"calls): windows of {WINDOW} {rounds['window']}, decode_step "
+        f"{rounds['steps']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1043,6 +1443,11 @@ def main() -> int:
                 phase_present(torch, rng, real_present)]
     del real_present
     launches = phase_pool(torch, streams, golden, digests)
+    plain = {k: v[2] for k, v in streams.items()}
+    for more in (phase_window(torch, plain, digests),
+                 phase_pool_window(torch, streams, golden, digests)):
+        for k, n in more.items():
+            launches[k] += n
     for mod in ("jax", "h263_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")

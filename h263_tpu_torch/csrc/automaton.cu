@@ -22,14 +22,15 @@
 // nothing, a diverged warp costs every lane in it the sum of the phases.
 //
 // Design.
-//   * Teams.  A warp runs LPW lanes (a template parameter: 1, 4, 8 or 32),
+//   * Teams.  A warp runs LPW lanes (a template parameter: 1, 2, 4, 8, 32),
 //     each by a team of 32 / LPW threads.  Every thread of a team executes
 //     the lane's steps with the same state (the hardware runs them as one),
 //     so at LPW = 1 a warp never diverges, and at any point of a step the
 //     whole team is there to load or store together.  Only the team's first
 //     thread writes the outputs.  The launcher spreads the lanes over the
-//     SMs (one thread block per SM where they fit) and takes the fewest
-//     lanes per warp that the block's 1024 threads allow.
+//     SMs (one thread block per SM where they fit at 1 lane per warp, in
+//     the warps the registers allow), and past that pairs lanes in a warp
+//     (see h263_automaton below).
 //   * The bitstream comes through a 1 KB window per lane in shared memory
 //     that the team refills with 16-byte loads, byte-swapped once; a refill
 //     of the lane's two-word bit window reads shared memory.
@@ -159,7 +160,8 @@ template <int LPW, bool SHARED_TABLES>
 __global__ void automaton_kernel(const uint8_t* __restrict__ payload,
                                  int64_t n_words,
                                  const int32_t* __restrict__ meta, int S,
-                                 int lanes_per_block, h263::LaneGeometry g,
+                                 int frame_lanes, int lanes_per_block,
+                                 h263::LaneGeometry g,
                                  const int32_t* __restrict__ tables,
                                  int16_t* __restrict__ dense,
                                  int16_t* __restrict__ mvs,
@@ -189,14 +191,18 @@ __global__ void automaton_kernel(const uint8_t* __restrict__ payload,
   if (!live) return;
 
   const int64_t nmb = (int64_t)g.mbh * g.mbw;
+  // Lane t * frame_lanes + s reads row k of its meta at meta[t][k][s].
+  const int frame = lane / frame_lanes;
+  const int32_t* m = meta + (int64_t)frame * 6 * frame_lanes +
+                     (lane - frame * frame_lanes);
   TeamIO io;
   io.payload = payload;
   io.n_words = n_words;
-  io.base = meta[5 * S + lane];
-  io.nbits = meta[1 * S + lane];
+  io.base = m[5 * frame_lanes];
+  io.nbits = m[1 * frame_lanes];
   io.lane_words = (int)((io.nbits + 31) / 32);
-  io.ptype = meta[3 * S + lane];
-  io.v1 = meta[4 * S + lane];
+  io.ptype = m[3 * frame_lanes];
+  io.v1 = m[4 * frame_lanes];
   io.tables = tab;
   io.dense = dense + (int64_t)lane * 6 * nmb * 64;
   io.mvs = mvs + (int64_t)lane * nmb * 8;
@@ -208,8 +214,8 @@ __global__ void automaton_kernel(const uint8_t* __restrict__ payload,
   const int in_warp = threadIdx.x & 31;
   io.mask = T == 32 ? 0xffffffffu : ((1u << T) - 1u) << (in_warp / T * T);
   int steps;
-  const int st = h263::run_lane(io, g, meta[0 * S + lane],
-                                meta[2 * S + lane], ring, &steps);
+  const int st = h263::run_lane(io, g, m[0], m[2 * frame_lanes], ring,
+                                &steps);
   if (rank == 0) {
     status[lane] = st;
     status[S + lane] = steps;
@@ -240,6 +246,7 @@ struct Args {
   int64_t n_words;
   const int32_t* meta;
   int S;
+  int frame_lanes;
   h263::LaneGeometry g;
   const int32_t* tables;
   int16_t* dense;
@@ -261,7 +268,8 @@ cudaError_t launch(const Args& a, int lanes_per_block) {
   if (err != cudaSuccess) return err;
   const int blocks = (a.S + lanes_per_block - 1) / lanes_per_block;
   kernel<<<blocks, threads, shared, a.stream>>>(
-      a.payload, a.n_words, a.meta, a.S, lanes_per_block, a.g, a.tables,
+      a.payload, a.n_words, a.meta, a.S, a.frame_lanes, lanes_per_block, a.g,
+      a.tables,
       a.dense, a.mvs, a.inter, a.status);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -276,6 +284,7 @@ cudaError_t launch_lpw(const Args& a, int lanes_per_warp,
                        int lanes_per_block) {
   switch (lanes_per_warp) {
     case 1: return launch<1, SHARED_TABLES>(a, lanes_per_block);
+    case 2: return launch<2, SHARED_TABLES>(a, lanes_per_block);
     case 4: return launch<4, SHARED_TABLES>(a, lanes_per_block);
     case 8: return launch<8, SHARED_TABLES>(a, lanes_per_block);
     case 32: return launch<32, SHARED_TABLES>(a, lanes_per_block);
@@ -295,36 +304,67 @@ int sm_count() {
   return sms;
 }
 
+// Warps of the 1-lane kernel that an SM holds at once.  Its registers bound
+// them: at 69-71 a thread (ptxas, kernels/ptxas_report.py) 28 warps, so a
+// block of more than 28 lanes at 1 lane per warp (896 threads) is refused.
+int resident_warps() {
+  static int warps = 0;
+  if (warps == 0) {
+    int dev = 0, per_sm = 65536, regs = 72;
+    cudaFuncAttributes attr;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxRegistersPerMultiprocessor,
+                             dev);
+    if (cudaFuncGetAttributes(&attr, automaton_kernel<1, false>) ==
+            cudaSuccess && attr.numRegs > 0)
+      regs = (attr.numRegs + 7) / 8 * 8;
+    warps = per_sm / (32 * regs);
+    warps = warps < 1 ? 1 : (warps > 64 ? 64 : warps);
+  }
+  return warps;
+}
+
+// Lanes of a block at 2 lanes per warp: 7 warps, 4 blocks on an SM.
+constexpr int kPairBlockLanes = 14;
+
 }  // namespace
 
-// The launch shape is chosen here from S: the lanes are spread over the SMs,
-// and a warp takes the fewest lanes that keep a block within 1024 threads
-// and its windows and rings within a block's shared memory.
-// lanes_per_warp (1, 4, 8, 32), lanes_per_block and shared_tables (0, 1)
+// The launch shape is chosen here from S (all the frames of a window
+// together): the lanes are spread over the SMs, and while an SM holds its
+// share at 1 lane per warp, each lane gets a warp, in one block per SM.
+// Beyond that (more than 28 x 132 = 3696 lanes), 2 lanes share a warp, in
+// blocks of 14 lanes.  Measured on the window's 8192 CIF lanes (8 frames of
+// a GOP; kernels/automaton_sweep.py, NVIDIA H100 80GB HBM3, 700 W), ms per
+// call with 0.763 ms of output fills (lanes per warp / per block): 2/14
+// 3.650, 4/32 3.768, 1/14 4.046, 2/28 4.052, 1/7 4.120, 4/63 4.158 (the rule
+// before: 4 lanes per warp over 32 lanes an SM), 1/28 4.492, 8/63 4.677, 2/56
+// 4.801, 4/112 5.811, 32/63 6.389; 8 launches of 1024 lanes 6.281.  Small
+// blocks win: a block frees its SM's room only when its longest lane ends.
+// lanes_per_warp (1, 2, 4, 8, 32), lanes_per_block and shared_tables (0, 1)
 // override that choice for measurements when lanes_per_warp is not 0; the
 // port's wrapper passes 0.
 extern "C" int h263_automaton(const void* payload, int64_t payload_bytes,
-                              const void* meta, int S, int mbh, int mbw,
+                              const void* meta, int S, int frame_lanes,
+                              int mbh, int mbw,
                               int ext_x, int ext_y, const void* tables,
                               void* dense, void* mvs, void* inter,
                               void* status, int lanes_per_warp,
                               int lanes_per_block, int shared_tables,
                               void* stream) {
   if (S <= 0) return (int)cudaGetLastError();
+  if (frame_lanes <= 0 || S % frame_lanes) return (int)cudaErrorInvalidValue;
   Args a{reinterpret_cast<const uint8_t*>(payload), payload_bytes / 4,
-         reinterpret_cast<const int32_t*>(meta), S,
+         reinterpret_cast<const int32_t*>(meta), S, frame_lanes,
          h263::LaneGeometry{mbh, mbw, ext_x, ext_y},
          reinterpret_cast<const int32_t*>(tables),
          reinterpret_cast<int16_t*>(dense), reinterpret_cast<int16_t*>(mvs),
          reinterpret_cast<uint8_t*>(inter), reinterpret_cast<int32_t*>(status),
          reinterpret_cast<cudaStream_t>(stream)};
   if (lanes_per_warp == 0) {
-    const int room = 227 * 1024 / lane_shared_bytes(mbw);
     const int spread = (S + sm_count() - 1) / sm_count();
-    lanes_per_warp = spread <= 32 ? 1 : 4;
-    lanes_per_block = spread < room ? spread : room;
-    if (lanes_per_block > 32 * lanes_per_warp)
-      lanes_per_block = 32 * lanes_per_warp;
+    const bool alone = spread <= resident_warps();
+    lanes_per_warp = alone ? 1 : 2;
+    lanes_per_block = alone ? spread : kPairBlockLanes;
     shared_tables = 0;
   }
   if (lanes_per_block <= 0) return (int)cudaErrorInvalidValue;

@@ -23,12 +23,14 @@ from ..ops.reconstruct import reconstruct_from_residuals  # noqa: F401
 from ..ops.reconstruct_cuda import reconstruct_from_dense_cuda
 
 
-def reconstruct_from_dense(dense, mvs, inter, ref_y, ref_cb, ref_cr):
+def reconstruct_from_dense(dense, mvs, inter, ref_y, ref_cb, ref_cr,
+                           out=None):
     """Dense int16 [S, 6*nmb, 64] coefficients (luma block grid row-major,
     then Cb, then Cr; row-major within a block) + MVs + INTER flags +
-    reference planes -> uint8 (y, cb, cr) planes."""
+    reference planes -> uint8 (y, cb, cr) planes, fresh or written into
+    `out` = (y, cb, cr)."""
     return reconstruct_from_dense_cuda(dense, mvs, inter, ref_y, ref_cb,
-                                       ref_cr)
+                                       ref_cr, out=out)
 
 
 def present_rgba_batched(y, cb, cr, strength, apply_deblock):

@@ -48,10 +48,11 @@ SIGNATURES = {
     # (coeffs int16 [n,64], out int32 [n,64], n, basis f32 [64] on the
     #  device, stream)
     "h263_idct_residual": [_P, _P, ctypes.c_int64, _P, _P],
-    # (payload u8, payload_bytes, meta int32 [6,S], S, mbh, mbw, ext_x,
-    #  ext_y, tables int32, dense, mvs, inter, status, lanes_per_warp,
-    #  lanes_per_block, shared_tables (all 0: chosen from S), stream)
-    "h263_automaton": [_P, ctypes.c_int64, _P, _I, _I, _I, _I, _I, _P,
+    # (payload u8, payload_bytes, meta int32 [S/frame_lanes, 6,
+    #  frame_lanes], S lanes, frame_lanes, mbh, mbw, ext_x, ext_y, tables
+    #  int32, dense, mvs, inter, status, lanes_per_warp, lanes_per_block,
+    #  shared_tables (all 0: chosen from S), stream)
+    "h263_automaton": [_P, ctypes.c_int64, _P, _I, _I, _I, _I, _I, _I, _P,
                        _P, _P, _P, _P, _I, _I, _I, _P],
     # (planes u8 [S,h,w], out u8 [S,h,w], S, h, w, strength int32 [S],
     #  apply u8 [S], stream)

@@ -65,16 +65,22 @@ def reconstruct_from_residuals(res_y, res_cb, res_cr, mvs, inter,
 
 
 def reconstruct_from_dense_plain(dense, mvs, inter, ref_y, ref_cb, ref_cr,
-                                 idct=idct_residual_fused):
+                                 idct=idct_residual_fused, out=None):
     """Dense int16 [S, 6*nmb, 64] coefficients (luma block grid row-major,
     then Cb, then Cr; row-major within a block) + MVs + INTER flags +
-    reference planes -> uint8 (y, cb, cr) planes.  `idct` maps the dense
-    tensor to int32 residuals of the same shape."""
+    reference planes -> uint8 (y, cb, cr) planes, written into `out`
+    (three planes of the references' shapes) when it is given.  `idct`
+    maps the dense tensor to int32 residuals of the same shape."""
     s, mbh, mbw = inter.shape
     nmb = mbh * mbw
     res = idct(dense)
     ry = res[:, :4 * nmb].reshape(s, 2 * mbh, 2 * mbw, 8, 8)
     rcb = res[:, 4 * nmb:5 * nmb].reshape(s, mbh, mbw, 8, 8)
     rcr = res[:, 5 * nmb:].reshape(s, mbh, mbw, 8, 8)
-    return reconstruct_from_residuals(ry, rcb, rcr, mvs, inter,
-                                      ref_y, ref_cb, ref_cr)
+    planes = reconstruct_from_residuals(ry, rcb, rcr, mvs, inter,
+                                        ref_y, ref_cb, ref_cr)
+    if out is None:
+        return planes
+    for o, p in zip(out, planes):
+        o.copy_(p)
+    return tuple(out)

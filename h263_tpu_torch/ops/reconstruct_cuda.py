@@ -22,11 +22,20 @@ from .reconstruct import reconstruct_from_dense_plain
 launches = 0
 
 
-def reconstruct_from_dense_cuda(dense, mvs, inter, ref_y, ref_cb, ref_cr):
+def _overlap(a, b) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and \
+        b0 < a0 + a.numel() * a.element_size()
+
+
+def reconstruct_from_dense_cuda(dense, mvs, inter, ref_y, ref_cb, ref_cr,
+                                out=None):
     """dense int16 [S, 6*nmb, 64] (luma block grid row-major, then Cb, then
     Cr), mvs int16 [S, mbh, mbw, 4, 2], inter bool or uint8 [S, mbh, mbw],
-    ref_y uint8 [S, h, w], ref_cb / ref_cr uint8 [S, ch, cw] -> three fresh
-    uint8 planes of the references' shapes."""
+    ref_y uint8 [S, h, w], ref_cb / ref_cr uint8 [S, ch, cw] -> three uint8
+    planes of the references' shapes: fresh ones, or `out` = (y, cb, cr),
+    contiguous tensors of those shapes that overlap no reference (a window
+    writes frame t into its slices of [T, S, ...] batches)."""
     global launches
     if inter.dim() != 3:
         raise ValueError(f"inter must be [S, mbh, mbw], got "
@@ -56,15 +65,26 @@ def reconstruct_from_dense_cuda(dense, mvs, inter, ref_y, ref_cb, ref_cr):
     dev = dense.device
     if any(t.device != dev for t in tensors):
         raise ValueError("all tensors must lie on one device")
+    refs = (ref_y, ref_cb, ref_cr)
+    if out is not None:
+        out = tuple(out)
+        for name, o, r in zip(("y", "cb", "cr"), out, refs):
+            if (o.dtype != torch.uint8 or o.shape != r.shape
+                    or o.device != dev or not o.is_contiguous()):
+                raise ValueError(f"out {name}: expected contiguous uint8 "
+                                 f"{tuple(r.shape)} on {dev}")
+            if any(_overlap(o, x) for x in refs):
+                raise ValueError(f"out {name} overlaps a reference plane")
     if dev.type == "cpu":
-        return reconstruct_from_dense_plain(*tensors)
+        return reconstruct_from_dense_plain(*tensors, out=out)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all tensors must be contiguous")
     if dense.data_ptr() % 16 or mvs.data_ptr() % 16:
         raise ValueError("dense and mvs must be 16-byte aligned")
-    out = tuple(torch.empty_like(r) for r in (ref_y, ref_cb, ref_cr))
+    if out is None:
+        out = tuple(torch.empty_like(r) for r in refs)
     basis = kernels.device_table("idct_basis", _BASIS, dev)
     rc = kernels.lib().h263_reconstruct(
         dense.data_ptr(), mvs.data_ptr(), inter.data_ptr(), ref_y.data_ptr(),

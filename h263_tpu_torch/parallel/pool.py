@@ -20,10 +20,15 @@ slots decode in lockstep:
   dimensions, or dimensions beyond `max_dims`, raises PictureFormatInvalid
   and leaves the stream where it was.
 
-Not ported (see ROADMAP): `decode_steps` (the K-frame window),
-`frontend="host"`, `switch_frontend` and the adaptive trigger,
-standard-H.263 pools, and `resolve_overflows` (the port's automaton has no
-tape and never overflows).
+`decode_steps` decodes a window of T frames with one
+`DeviceFrontendDecoder.decode_steps` per bucket (one copy, one automaton
+launch, T reconstructions), frame for frame equal to T `decode_step` calls;
+a window in which a stream changes resolution falls back to those calls
+(counted as `pool_window_fallbacks`).
+
+Not ported (see ROADMAP): `frontend="host"`, `switch_frontend` and the
+adaptive trigger, standard-H.263 pools, and `resolve_overflows` (the port's
+automaton has no tape and never overflows).
 """
 
 from __future__ import annotations
@@ -372,6 +377,69 @@ class StreamPool:
             first_err.pool_step_result = out
             raise first_err
         return out
+
+    def decode_steps(self, frame_lists) -> list:
+        """Decode a window of T frames (`frame_lists`: T dicts of stream_id
+        -> frame bytes) with one window step per bucket; returns T
+        `PoolStepResult`s, frame for frame what T `decode_step` calls give.
+
+        Registered streams absent from a frame's dict decode the skip frame
+        with the header commit suppressed.  A failed (frame, stream) decodes
+        the identity frame, and the first error is raised after every
+        bucket has stepped, with the window's results attached as
+        `pool_window_results`.  Unknown ids raise KeyError before anything
+        steps.  A window in which any stream's header names other
+        dimensions than its bucket's (a resolution change needs the
+        per-frame pre-pass) runs as T `decode_step` calls instead.
+        """
+        T = len(frame_lists)
+        if T == 0:
+            return []
+        unknown = set().union(*frame_lists) - set(self._dims)
+        if unknown:
+            raise KeyError(
+                f"unregistered streams: {sorted(unknown, key=repr)!r}")
+        for b in frame_lists:
+            for sid, buf in b.items():
+                sniffed = _sniff_sorenson(bytes(buf))
+                if sniffed is not None and sniffed[:2] != self._dims[sid]:
+                    incr("pool_window_fallbacks")
+                    return [self.decode_step(b) for b in frame_lists]
+        for key in list(self._pending):
+            self._finalize(key)
+
+        results = [PoolStepResult() for _ in range(T)]
+        first_err: Optional[H263Error] = None
+        for bucket in self._buckets.values():
+            dec = bucket.dec
+            window = [[None] * dec.n for _ in range(T)]
+            present = False
+            for t, b in enumerate(frame_lists):
+                for sid, slot in bucket.slots.items():
+                    if sid in b:
+                        window[t][slot] = b[sid]
+                        present = True
+            if not present:
+                continue
+            try:
+                ys, cbs, crs = dec.decode_steps(window)
+            except H263Error as e:
+                # As in decode_step: the window was dispatched (failed lanes
+                # decode identity frames), so the other buckets still step;
+                # this bucket's planes are not attached.
+                if first_err is None:
+                    first_err = e
+                continue
+            # One view of each frame's planes, shared by its streams.
+            for b, res, y, cb, cr in zip(frame_lists, results, ys.unbind(0),
+                                         cbs.unbind(0), crs.unbind(0)):
+                for sid, slot in bucket.slots.items():
+                    if sid in b:
+                        res._add(sid, y, cb, cr, slot)
+        if first_err is not None:
+            first_err.pool_window_results = results
+            raise first_err
+        return results
 
     def present_rgba(self, deblock: Optional[bool] = None) -> dict:
         """RGBA of every registered stream's last decoded frame: {sid: uint8

@@ -5,6 +5,11 @@ parse_frames_pallas` around `h263_tpu/parser/device_frontend.py::make_step`,
 which ran as an XLA while_loop) together with `assemble`.  A CPU tensor goes
 to the plain version (`parser/device_frontend.py::parse_assemble`); a CUDA
 tensor launches the kernel or raises.
+
+A window of T frames (meta [T, 6, S], every frame's payload in the one flat
+buffer) is one launch over T*S lanes, lane t*S + s: a frame's entropy decode
+reads nothing of the frame before it, so the window's T frames run side by
+side and only their reconstructions run in order.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ def parse_assemble_cuda(payload_u8: torch.Tensor, meta: torch.Tensor, *,
                         mbh: int, mbw: int, width=None, height=None):
     """Ragged uint8 payload [Nw, 4] + int32 meta [6, S] -> (dense int16
     [S, 6*nmb, 64], mvs int16 [S, mbh, mbw, 4, 2], inter bool [S, mbh, mbw],
-    status int32 [S])."""
+    status int32 [S]).  With meta [T, 6, S] (a window: row 5 of frame t
+    holds word offsets into the same payload) every output gains a leading
+    [T] dimension, from one launch."""
     return _parse_assemble(payload_u8, meta, mbh, mbw, width, height,
                            (0, 0, 0))[:4]
 
@@ -50,22 +57,28 @@ def parse_assemble_cuda(payload_u8: torch.Tensor, meta: torch.Tensor, *,
 def _parse_assemble(payload_u8, meta, mbh, mbw, width, height, launch_shape):
     """`parse_assemble_cuda` with the kernel's launch shape (lanes per warp,
     lanes per block, tables in shared memory; zeros: chosen by the launcher
-    from S) given, as `kernels/automaton_sweep.py` measures it.  On a CUDA
-    tensor the result carries a fifth element: the steps each lane's
-    automaton took, int32 [S]."""
+    from the lane count) given, as `kernels/automaton_sweep.py` measures
+    it.  On a CUDA tensor the result carries a fifth element: the steps each
+    lane's automaton took, int32 [S] (or [T, S])."""
     global launches
     if payload_u8.dtype != torch.uint8 or meta.dtype != torch.int32:
         raise ValueError("expected a uint8 payload and int32 meta")
-    if meta.dim() != 2 or meta.shape[0] != 6:
-        raise ValueError(f"meta must be [6, S], got {tuple(meta.shape)}")
+    if meta.dim() not in (2, 3) or meta.shape[-2] != 6:
+        raise ValueError(f"meta must be [6, S] or [T, 6, S], got "
+                         f"{tuple(meta.shape)}")
     if payload_u8.numel() % 4 or payload_u8.numel() == 0:
         raise ValueError("payload must hold a whole, nonzero number of words")
     if payload_u8.device != meta.device:
         raise ValueError("payload and meta must lie on one device")
+    lead = tuple(meta.shape[:-2]) + (meta.shape[-1],)   # (S,) or (T, S)
     dev = payload_u8.device
     if dev.type == "cpu":
-        return parse_assemble(payload_u8, meta, mbh=mbh, mbw=mbw,
-                              width=width, height=height)
+        # The plain version takes the window's lanes as one flat batch.
+        flat = meta.transpose(0, 1).reshape(6, -1) if meta.dim() == 3 \
+            else meta
+        out = parse_assemble(payload_u8, flat, mbh=mbh, mbw=mbw,
+                             width=width, height=height)
+        return tuple(t.reshape(*lead, *t.shape[1:]) for t in out)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if mbw > MAX_MBW:
@@ -75,7 +88,7 @@ def _parse_assemble(payload_u8, meta, mbh, mbw, width, height, launch_shape):
         raise ValueError("payload and meta must be contiguous")
     if payload_u8.data_ptr() % 16:
         raise ValueError("the payload must be 16-byte aligned")
-    S = meta.shape[1]
+    S = int(np.prod(lead))                  # lanes of the launch, T * S
     nmb = mbh * mbw
     dense = torch.zeros((S, 6 * nmb, 64), dtype=torch.int16, device=dev)
     mvs = torch.zeros((S, mbh, mbw, 4, 2), dtype=torch.int16, device=dev)
@@ -85,10 +98,11 @@ def _parse_assemble(payload_u8, meta, mbh, mbw, width, height, launch_shape):
     ext_y = _extended_range_for_dim(height if height else 16 * mbh, False)
     tables = kernels.device_table("automaton", TABLES, dev)
     rc = kernels.lib().h263_automaton(
-        payload_u8.data_ptr(), payload_u8.numel(), meta.data_ptr(), S, mbh,
-        mbw, ext_x, ext_y, tables.data_ptr(), dense.data_ptr(),
+        payload_u8.data_ptr(), payload_u8.numel(), meta.data_ptr(), S,
+        lead[-1], mbh, mbw, ext_x, ext_y, tables.data_ptr(), dense.data_ptr(),
         mvs.data_ptr(), inter.data_ptr(), status.data_ptr(), *launch_shape,
         kernels.stream_handle(dev))
     kernels.check(rc, "h263_automaton")
     launches += 1
-    return dense, mvs, inter.view(torch.bool), status[0], status[1]
+    return tuple(t.view(*lead, *t.shape[1:]) for t in (
+        dense, mvs, inter.view(torch.bool), status[0], status[1]))

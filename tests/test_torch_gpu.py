@@ -34,6 +34,7 @@ from h263_tpu_torch.parallel.pool import StreamPool  # noqa: E402
 from h263_tpu_torch.parser import automaton_cuda  # noqa: E402
 from h263_tpu_torch.parser import device_frontend as tdf  # noqa: E402
 from h263_tpu_torch.testing.corpora import rich_gop  # noqa: E402
+from h263_tpu_torch.types import H263Error  # noqa: E402
 
 
 @pytest.fixture
@@ -286,3 +287,170 @@ def test_cuda_pool_matches_cpu_pool(cuda):
         for sid in rgba[1]:
             np.testing.assert_array_equal(rgba[0][sid].cpu().numpy(),
                                           rgba[1][sid].numpy())
+
+
+def _window_lists(S, T, w=48, h=32, seed=1000):
+    """T lists of S frames of rich GOPs, with an absent lane, a frame cut in
+    the block layer and a header reject in the window."""
+    streams = [rich_gop(seed + i, w, h, n=T) for i in range(S)]
+    lists = [[streams[i][t] for i in range(S)] for t in range(T)]
+    lists[1][0] = None
+    lists[2][1] = streams[1][2][:14]
+    lists[T - 1][2] = b"\x12\x34\x56"
+    return lists
+
+
+def _sequential(dec, lists):
+    out = []
+    for bufs in lists:
+        try:
+            dec.decode_step(bufs)
+        except H263Error:
+            pass
+        out.append((dec.ref_y, dec.ref_cb, dec.ref_cr, dec.last_status))
+    return out
+
+
+@pytest.mark.gpu
+def test_window_matches_sequential_steps_on_card(cuda):
+    S, T = 5, 4
+    lists = _window_lists(S, T)
+    win = DeviceFrontendDecoder(S, 48, 32)
+    cpu = DeviceFrontendDecoder(S, 48, 32, device="cpu")
+    before = (automaton_cuda.launches, reconstruct_cuda.launches)
+    with pytest.raises(H263Error, match="header rejected"):
+        win.decode_steps(lists)
+    # One automaton launch over T*S lanes, T reconstructions.
+    assert (automaton_cuda.launches, reconstruct_cuda.launches) == (
+        before[0] + 1, before[1] + T)
+    ys, cbs, crs = win.ref_y, win.ref_cb, win.ref_cr
+    seq = _sequential(DeviceFrontendDecoder(S, 48, 32), lists)
+    with pytest.raises(H263Error, match="header rejected"):
+        cpu.decode_steps(lists)
+    for t, (y, cb, cr, st) in enumerate(seq):
+        assert torch.equal(win.last_status_steps[t], st), t
+    assert torch.equal(ys, seq[-1][0]) and torch.equal(cbs, seq[-1][1])
+    assert torch.equal(crs, seq[-1][2])
+    np.testing.assert_array_equal(win.ref_y.cpu().numpy(), cpu.ref_y.numpy())
+    np.testing.assert_array_equal(win.last_status_steps.cpu().numpy(),
+                                  cpu.last_status_steps.numpy())
+
+
+@pytest.mark.gpu
+def test_window_planes_equal_each_sequential_step(cuda):
+    S, T = 6, 5
+    lists = _window_lists(S, T, seed=1100)[:T - 1]     # no header reject
+    win = DeviceFrontendDecoder(S, 48, 32)
+    ys, cbs, crs = win.decode_steps(lists)
+    seq = _sequential(DeviceFrontendDecoder(S, 48, 32), lists)
+    for t, (y, cb, cr, st) in enumerate(seq):
+        assert torch.equal(ys[t], y) and torch.equal(cbs[t], cb), t
+        assert torch.equal(crs[t], cr), t
+    # decode_step after the window continues from its last planes.
+    nxt = [rich_gop(1200 + i, n=1)[0] for i in range(S)]
+    seq_dec = DeviceFrontendDecoder(S, 48, 32)
+    _sequential(seq_dec, lists + [nxt])
+    win.decode_step(nxt)
+    assert torch.equal(win.ref_y, seq_dec.ref_y)
+
+
+@pytest.mark.gpu
+def test_window_makes_no_synchronising_call(cuda):
+    S, T = 4, 3
+    lists = _window_lists(S, T, seed=1300)[:T - 1]
+    dec = DeviceFrontendDecoder(S, 48, 32)
+    dec.decode_step(lists[0])                  # tables and kernels loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            dec.decode_steps(lists)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_window_automaton_launch_equals_per_frame_launches_cif(cuda):
+    """The launcher's chosen shape at 8 x 1024 CIF lanes (one launch)
+    against 8 per-frame launches of 1024 lanes: equal outputs and steps."""
+    from h263_tpu_torch.kernels import automaton_sweep
+
+    payload, meta = automaton_sweep.window_inputs(
+        torch, 8, 1024, True, np.random.default_rng(5))
+    got = automaton_cuda._parse_assemble(payload, meta, 18, 22, 352, 288,
+                                         (0, 0, 0))
+    for t in range(8):
+        want = automaton_cuda._parse_assemble(payload, meta[t], 18, 22, 352,
+                                              288, (0, 0, 0))
+        for a, b in zip(got, want):
+            assert torch.equal(a[t], b), t
+    assert (got[3] != 0).any() and (got[3] == 0).any()
+
+
+@pytest.mark.gpu
+def test_window_at_8192_cif_lanes_matches_sequential(cuda):
+    from h263_tpu_torch.testing import corpora as C
+
+    S, T = 1024, 8
+    cif = [C.cif_corpus(k) for k in range(16)]
+    lists = [[cif[i % 16][t] for i in range(S)] for t in range(T)]
+    win = DeviceFrontendDecoder(S, 352, 288)
+    ys, cbs, crs = win.decode_steps(lists)
+    seq = DeviceFrontendDecoder(S, 352, 288)
+    for t in range(T):
+        y, cb, cr = seq.decode_step(lists[t])
+        assert torch.equal(ys[t], y) and torch.equal(cbs[t], cb), t
+        assert torch.equal(crs[t], cr), t
+        assert torch.equal(win.last_status_steps[t], seq.last_status), t
+    assert int((win.last_status_steps != 0).sum()) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_pool_window_matches_cpu_pool_window(cuda):
+    pools = [StreamPool(), StreamPool(device="cpu")]
+    a, b = rich_gop(11, n=4), rich_gop(12, 64, 48, n=4)
+    c = rich_gop(13, n=4)
+    for pool in pools:
+        pool.add_stream("a", 48, 32)
+        pool.add_stream("b", 64, 48)
+        pool.add_stream("c", 48, 32)
+    dicts = [{"a": a[t], "b": b[t], **({"c": c[t]} if t != 2 else {})}
+             for t in range(4)]
+    outs = [pool.decode_steps(dicts) for pool in pools]
+    for t in range(4):
+        assert set(outs[0][t]) == set(outs[1][t]) == set(dicts[t])
+        for sid in dicts[t]:
+            for g, p in zip(outs[0][t][sid], outs[1][t][sid]):
+                np.testing.assert_array_equal(g, p, err_msg=f"{sid}@{t}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [3697, 4096, 4224, 8192, 14785, 16384])
+def test_automaton_launches_at_every_lane_count(cuda, S):
+    """The launcher's shape must fit the kernel's registers: before the
+    register-aware rule, 3697-4224 lanes (29-32 lanes of a warp each on 132
+    SMs, 928-1024 threads a block) and from 14785 lanes on (4 lanes per warp,
+    904 threads and more) were refused with CUDA error 701.  Lanes repeat a
+    set of 41 frames; each must equal that frame's lane of a small launch."""
+    frames = []
+    for seed in range(3):
+        frames += rich_gop(seed)
+    frames += [frames[1][:k] for k in range(8, len(frames[1]), 5)]
+    n = len(frames)
+
+    def launch(bufs):
+        prep = DevicePrepBatch(len(bufs), 48, 32)
+        total = sum(((len(f) + 3) // 4) * 4 for f in bufs)
+        stage = np.zeros((total // 4 + 1, 4), np.uint8)
+        meta = np.zeros((6, len(bufs)), np.int32)
+        prep.prepare_ragged(bufs, stage, meta)
+        return automaton_cuda.parse_assemble_cuda(
+            torch.as_tensor(stage).to(cuda), torch.as_tensor(meta).to(cuda),
+            mbh=2, mbw=3)
+
+    small = launch(frames)
+    big = launch([frames[i % n] for i in range(S)])
+    idx = torch.arange(S, device=cuda) % n
+    for a, b in zip(big, small):
+        assert torch.equal(a, b.index_select(0, idx))
