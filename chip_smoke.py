@@ -6,7 +6,8 @@
 Phases (any failure ends the run with a nonzero exit, before the last line):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: nvcc compiles h263_tpu_torch/csrc/*.cu (one process per source,
-     all at once) and g++ the port's native header prep, from the checkout;
+     all at once) and g++ the port's native library (the host entropy
+     decoder and header prep), from the checkout;
   3. IDCT kernel vs its plain PyTorch version on the card, 1024*6*396 random
      blocks of every class plus the FMA block (must give 28): exact;
   4. automaton kernel vs its plain version on the card at the main path's
@@ -63,10 +64,24 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      window that holds the CIF->QCIF I-frame rebucket, which falls back to
      decode_step calls (counted); sampled streams equal the reference
      digests every frame; then frames/s of a GOP of the pool's traffic back
-     to back, in windows and in steps.
+     to back, in windows and in steps;
+  11. the host-front-end path: BatchedStreamDecoder(1024, 352, 288) over
+     phase 5's GOP and lanes, every frame's planes and the RGBA equal
+     (torch.equal) to DeviceFrontendDecoder's on the same bytes, sampled
+     lanes equal to the reference digests, FMA 156, the fixture within +-1;
+     the d24 unpack kernel held exact against its plain version on every
+     step's rows (slim, full and the flip step's entries) and on hand-made
+     rows (collisions, cursor -1, escapes, tails past the end) at CIF and
+     177x145; a lane set whose block MVs vary from frame 2 on (the MV-row
+     flip) and a decoder with a small pack_cap (PackOverflow -> the dense
+     transport), both equal to the device front-end; then a P-step's split,
+     the prefix copy against whole rows, back-to-back frames/s of
+     decode_step, decode_stream_pipelined and the device front-end, the
+     stage timers, peak memory; then phase 8's traffic through
+     StreamPool(frontend="host"), digests every frame.
 
-The kernels line's launch counts are those of phases 8, 9 and 10 (each run
-with the counts set to 0 just before it).
+The kernels line's launch counts are those of phases 8-11 (each run with
+the counts set to 0 just before it).
 
 The oracle is `h263_tpu_torch/testdata/reference_digests.json`: SHA-256
 digests of the numpy reference decoder's planes and deblocked RGBA, which
@@ -79,6 +94,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -114,6 +130,21 @@ def log(msg):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def host_cpus() -> str:
+    """The host cores this process may run on, and its cgroup's CPU quota
+    (the native parse's threads share them)."""
+    quota = []
+    for path in ("/sys/fs/cgroup/cpu.max",
+                 "/sys/fs/cgroup/cpu/cpu.cfs_quota_us",
+                 "/sys/fs/cgroup/cpu/cpu.cfs_period_us"):
+        if os.path.exists(path):
+            with open(path) as fh:
+                quota.append(f"{path}: {fh.read().strip()}")
+    quota = ", ".join(quota) or "no cgroup quota file"
+    return (f"{len(os.sched_getaffinity(0))} of {os.cpu_count()} cores in "
+            f"the affinity mask; {quota}")
 
 
 def nvidia_smi_line() -> str:
@@ -331,8 +362,16 @@ def phase_automaton(torch, corpora, rng):
                 bound_by="bytes", library_ms=None)
 
 
+# The kernels the device front-end's paths launch (phases 5 and 8, with
+# their cross-checks), and those of the host front-end's (phase 11).
+DEVICE_PATH = ("idct_residual", "entropy_automaton", "deblock",
+               "yuv420_to_rgba", "reconstruct", "present_rgba")
+HOST_PATH = ("d24_unpack", "reconstruct", "present_rgba")
+
+
 def kernel_modules():
     from h263_tpu_torch.ops import (
+        d24_cuda,
         deblock_cuda,
         idct_cuda,
         present_cuda,
@@ -343,7 +382,8 @@ def kernel_modules():
 
     return {"idct_residual": idct_cuda, "entropy_automaton": automaton_cuda,
             "deblock": deblock_cuda, "yuv420_to_rgba": yuv_cuda,
-            "reconstruct": reconstruct_cuda, "present_rgba": present_cuda}
+            "reconstruct": reconstruct_cuda, "present_rgba": present_cuda,
+            "d24_unpack": d24_cuda}
 
 
 class ReconstructProbe:
@@ -496,7 +536,7 @@ def phase_decoder(torch, streams, golden, digests):
     log(f"decoder path: launches during the GOP and two presents {launches} "
         f"(the IDCT kernel's is step {PROBE_STEP}'s cross-check, the deblock "
         f"and YUV kernels' the first present's)")
-    if (min(launches.values()) < 1 or probe.inputs is None
+    if (min(launches[k] for k in DEVICE_PATH) < 1 or probe.inputs is None
             or not present_probe.checked):
         fail("a kernel of the decoder path was not launched")
     if launches["present_rgba"] != 2:
@@ -870,8 +910,54 @@ class _Timed:
         return out
 
 
-def phase_pool(torch, streams, golden, digests):
-    """The serving pool: two buckets, churn, absence, rebucketing, growth."""
+class _StepSplit:
+    """Host wall time, synchronised on both sides, of the pool's own calls
+    inside each pool step: the rebucket frame's validation, a bucket's
+    growth, and every bucket's decode_step (by its dims)."""
+
+    def __init__(self, torch, pool):
+        self.torch, self.steps = torch, []
+        pool._validate_rebucket_frame = self.wrap(
+            "validate", pool._validate_rebucket_frame)
+        pool._grow = self.wrap("grow", pool._grow)
+        make = pool._make_decoder
+
+        def make_timed(n, w, h):
+            dec = make(n, w, h)
+            dec.decode_step = self.wrap(f"{w}x{h}", dec.decode_step)
+            return dec
+        pool._make_decoder = make_timed
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.torch.cuda.synchronize()
+                step = self.steps[-1]
+                step[name] = step.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    def begin(self):
+        self.steps.append({})
+
+    def table(self, pool_s):
+        """Each step's parts in ms, and the rest of the pool step (the
+        parts do not nest, so the rest is the step less their sum)."""
+        out = []
+        for step, total in zip(self.steps, pool_s):
+            row = {k: round(v * 1e3, 2) for k, v in step.items()}
+            row["rest"] = round((total - sum(step.values())) * 1e3, 2)
+            out.append(row)
+        return out
+
+
+def phase_pool(torch, streams, golden, digests, frontend="device"):
+    """The serving pool: two buckets, churn, absence, rebucketing, growth,
+    with either entropy front-end.  The device pool's step PROBE_STEP also
+    runs the one-step cross-checks of the IDCT, deblock and YUV kernels."""
     from h263_tpu_torch.parallel.pool import StreamPool
     from h263_tpu_torch.testing.corpora import planes_digest, rgba_digest
     from h263_tpu_torch.types import PictureFormatInvalid
@@ -896,9 +982,15 @@ def phase_pool(torch, streams, golden, digests):
 
     torch.cuda.synchronize()
     reset_launches()
-    pool = StreamPool(device=DEVICE)
-    probe = ReconstructProbe(torch, S_MAIN)
-    present_probe = PresentProbe(torch, S_MAIN)
+    tag = f"pool path ({frontend})"
+    pool = StreamPool(frontend=frontend, device=DEVICE)
+    split = _StepSplit(torch, pool)
+    device = frontend == "device"
+    probe_t = PROBE_STEP if device else None   # the step with cross-checks
+    probe = ReconstructProbe(torch, S_MAIN) if device else \
+        contextlib.nullcontext()
+    present_probe = PresentProbe(torch, S_MAIN) if device else \
+        contextlib.nullcontext()
     for sid, name in seq_of.items():
         pool.add_stream(sid, *streams[name][:2])
     cursor = {sid: 0 for sid in seq_of}
@@ -921,14 +1013,15 @@ def phase_pool(torch, streams, golden, digests):
                 pool.decode_step({refused: streams["q1"][2][1]})
                 fail("a rebucket on a P-frame was accepted")
             except PictureFormatInvalid as e:
-                log(f"pool: a P-frame rebucket was refused ({e})")
+                log(f"{tag}: a P-frame rebucket was refused ({e})")
             if pool._dims[refused] != (W, H):
                 fail("the refused stream moved")
         feed = {sid: streams[name][2][cursor[sid]]
                 for sid, name in seq_of.items()
                 if not (sid == absent and t == absent_t)}
+        split.begin()
         t0 = time.perf_counter()
-        if t == PROBE_STEP:
+        if t == probe_t:
             with probe:
                 out = pool.decode_step(feed)
         else:
@@ -950,16 +1043,16 @@ def phase_pool(torch, streams, golden, digests):
             name, k = seq_of[sid], cursor[sid]
             y, cb, cr = out[sid]
             if planes_digest(y, cb, cr) != digests[name]["planes"][k]:
-                fail(f"pool: {sid} ({name} frame {k}) at step {t} differs "
+                fail(f"{tag}: {sid} ({name} frame {k}) at step {t} differs "
                      f"from the reference digest")
             if name == "fma" and int(y[0, 2]) != (156 if k else 128):
-                fail(f"pool: FMA pixel (0,2) is {int(y[0, 2])}")
+                fail(f"{tag}: FMA pixel (0,2) is {int(y[0, 2])}")
             if name == "fixture":
-                check_fixture_luma(y, golden[k], f"pool step {t}")
+                check_fixture_luma(y, golden[k], f"{tag} step {t}")
         for sid in feed:
             cursor[sid] += 1
         t0 = time.perf_counter()
-        if t == PROBE_STEP:
+        if t == probe_t:
             with present_probe:
                 rgba = pool.present_rgba(deblock=True)
         else:
@@ -974,19 +1067,30 @@ def phase_pool(torch, streams, golden, digests):
                 continue
             name, k = seq_of[sid], cursor[sid] - 1
             if rgba_digest(rgba[sid].cpu().numpy()) != digests[name]["rgba"][k]:
-                fail(f"pool: {sid} RGBA ({name} frame {k}) at step {t} "
+                fail(f"{tag}: {sid} RGBA ({name} frame {k}) at step {t} "
                      f"differs from the reference digest")
     launches = read_launches()
-    peak = max(p for t, p in enumerate(peaks) if t != PROBE_STEP)
+    peak = max(p for t, p in enumerate(peaks) if t != probe_t)
     counters = get_counters()
     qcif_n1 = pool._buckets[(176, 144)].dec.n
-    log(f"pool path: launches {launches} (the IDCT kernel's, and the deblock "
-        f"and YUV kernels', are step {PROBE_STEP}'s cross-checks of the CIF "
-        f"bucket); counters {counters}; QCIF bucket "
-        f"{qcif_n0} -> {qcif_n1} slots; CIF bucket {cif_dec.n} slots")
-    if (min(launches.values()) < 1 or probe.inputs is None
-            or not present_probe.checked):
-        fail("a kernel of the pool path was not launched")
+    log(f"{tag}: launches {launches}"
+        + (f" (the IDCT kernel's, and the deblock and YUV kernels', are step "
+           f"{PROBE_STEP}'s cross-checks of the CIF bucket)" if device else "")
+        + f"; counters {counters}; QCIF bucket {qcif_n0} -> {qcif_n1} slots; "
+        f"CIF bucket {cif_dec.n} slots")
+    if device:
+        if (min(launches[k] for k in DEVICE_PATH) < 1 or probe.inputs is None
+                or not present_probe.checked):
+            fail("a kernel of the pool path was not launched")
+        # One automaton launch per bucket step; the rebucket frame is
+        # validated by the host parse and launches none.
+        if launches["entropy_automaton"] != 2 * GOP:
+            fail("the device pool must launch the automaton once per bucket "
+                 "step")
+    elif (min(launches[k] for k in HOST_PATH) < 1
+          or launches["entropy_automaton"] != 0):
+        fail("the host pool must launch the unpack, reconstruct and present "
+             "kernels, and never the automaton")
     if launches["present_rgba"] != 2 * GOP:
         fail("each bucket's present must launch the present kernel once")
     if qcif_n1 <= qcif_n0 or pool._dims[mover] != (176, 144):
@@ -1002,29 +1106,38 @@ def phase_pool(torch, streams, golden, digests):
     views_ms = (time.perf_counter() - t0) * 1e3
     del batch, views
     rest_ms = [round((p - d) * 1e3, 2) for p, d in zip(pool_s[1:], dec_s)]
-    # Rates leave out the step that carries the cross-check's second,
-    # plain reconstruction.
-    own = [s for t, s in enumerate(dec_s, start=1) if t != PROBE_STEP]
-    pre_own = [s for t, s in enumerate(pre_s) if t != PROBE_STEP]
-    log(f"pool path: {frames_done} frames over {GOP} steps, "
-        f"{frames_done / sum(pool_s):.1f} frames/s, step {PROBE_STEP}'s "
-        f"cross-check included (step ms "
-        f"{[round(s * 1e3, 2) for s in pool_s]}); CIF bucket ({cif_dec.n} "
-        f"slots): decode over steps 1-{GOP - 1} but {PROBE_STEP} "
+    # A device pool's rates leave out the step that carries the
+    # cross-check's second, plain reconstruction; a host pool runs none.
+    own = [s for t, s in enumerate(dec_s, start=1) if t != probe_t]
+    pre_own = [s for t, s in enumerate(pre_s) if t != probe_t]
+    but = f" but {PROBE_STEP}" if device else ""
+    log(f"{tag}: {frames_done} frames over {GOP} steps, "
+        f"{frames_done / sum(pool_s):.1f} frames/s"
+        + (f", step {PROBE_STEP}'s cross-check included" if device else "")
+        + f" (step ms {[round(s * 1e3, 2) for s in pool_s]}); CIF bucket "
+        f"({cif_dec.n} slots): decode over steps 1-{GOP - 1}{but} "
         f"{cif_dec.n * len(own) / sum(own):.1f} frames/s (ms "
         f"{[round(s * 1e3, 2) for s in dec_s]}), present over steps 0-"
-        f"{GOP - 1} but {PROBE_STEP} "
+        f"{GOP - 1}{but} "
         f"{cif_dec.n * len(pre_own) / sum(pre_own):.1f} frames/s (ms "
-        f"{[round(s * 1e3, 2) for s in pre_s]}, step {PROBE_STEP} with the "
-        f"cross-check); the rest of each pool step"
-        f" (QCIF bucket, headers, rebucketing) ms {rest_ms}; present_rgba "
-        f"of the whole "
-        f"pool ms {[round(s * 1e3, 2) for s in present_s]} (the views of "
+        f"{[round(s * 1e3, 2) for s in pre_s]}"
+        + (f", step {PROBE_STEP} with the cross-check" if device else "")
+        + f"); the rest of each pool step (QCIF bucket, headers, "
+        f"rebucketing) ms {rest_ms}; present_rgba of the whole pool ms "
+        f"{[round(s * 1e3, 2) for s in present_s]} (the views of "
         f"a {cif_dec.n}-frame batch alone: {views_ms:.2f} ms); peak device "
-        f"memory of a step with its present {peak / 2**30:.2f} GiB "
-        f"({peaks[PROBE_STEP] / 2**30:.2f} GiB at step {PROBE_STEP}, with "
-        f"the cross-check); {len(sampled)} sampled streams "
-        f"equal the reference digests every frame (planes and RGBA)")
+        f"memory of a step with its present {peak / 2**30:.2f} GiB"
+        + (f" ({peaks[PROBE_STEP] / 2**30:.2f} GiB at step {PROBE_STEP}, "
+           f"with the cross-check)" if device else "")
+        + f"; {len(sampled)} sampled streams equal the reference digests "
+        f"every frame (planes and RGBA)")
+    # Where each step's time goes, the rebucket step above all: the frame's
+    # host validation, the QCIF bucket's growth (a new decoder and the
+    # planes' copy), each bucket's decode_step, and the rest (the pre-pass's
+    # sniffing, masks, batches, result views).
+    log(f"{tag}: split of each pool step in ms (rebucket at step {move_t}"
+        + (f", cross-checks at step {PROBE_STEP}" if device else "")
+        + f"): {split.table(pool_s)}")
     return launches
 
 
@@ -1395,6 +1508,400 @@ def phase_pool_window(torch, streams, golden, digests):
     return launches
 
 
+def fourv_corpus(seed: int, n_frames: int):
+    """A CIF GOP whose block MVs vary from frame 2 on (INTER4V macroblocks
+    among INTER ones): the host decoder's MV-row flip."""
+    from h263_tpu_torch.testing.encoder import MBSpec, encode_sorenson_picture
+    from h263_tpu_torch.types import PictureTypeCode
+
+    rng = np.random.default_rng(seed)
+    nmb = (W // 16) * (H // 16)
+    frames = [encode_sorenson_picture(
+        W, H, PictureTypeCode.I_FRAME,
+        [MBSpec(kind="intra", intradc=[int(rng.integers(1, 128)) * 8] * 6,
+                blocks=[[(0, int(rng.integers(1, 9)))], [], [], [], [], []])
+         for _ in range(nmb)])]
+    for tr in range(1, n_frames):
+        mbs = []
+        for _ in range(nmb):
+            r = rng.random()
+            if r < 0.2:
+                mbs.append(MBSpec(kind="uncoded"))
+                continue
+            four = tr >= 2 and r < 0.5
+            mbs.append(MBSpec(
+                kind="inter4v" if four else "inter",
+                mvd=[(int(rng.integers(-6, 7)), int(rng.integers(-6, 7)))
+                     for _ in range(4 if four else 1)],
+                blocks=[[(int(rng.integers(0, 4)), int(rng.integers(1, 8)))],
+                        [], [], [], [], []]))
+        frames.append(encode_sorenson_picture(
+            W, H, PictureTypeCode.P_FRAME, mbs, temporal_reference=tr))
+    return frames
+
+
+class D24Probe:
+    """Stands in for the host decoder's two reconstructions from the fused
+    transport (`parallel/batch.py`) while installed: passes every call on,
+    after holding the unpack kernel against its plain version on the call's
+    own rows (slim and full fused rows, and the flip step's entries).  The
+    comparison's launch is not counted."""
+
+    def __init__(self, torch):
+        from h263_tpu_torch.parallel import batch
+
+        self.torch, self.mod = torch, batch
+        self.fns = (batch.reconstruct_frame_packed_d24_fused,
+                    batch.reconstruct_frame_packed_d24)
+        self.err, self.calls = 0, {"slim": 0, "full": 0, "entries": 0}
+
+    def __enter__(self):
+        self.mod.reconstruct_frame_packed_d24_fused = self.fused
+        self.mod.reconstruct_frame_packed_d24 = self.entries
+        return self
+
+    def __exit__(self, *exc):
+        (self.mod.reconstruct_frame_packed_d24_fused,
+         self.mod.reconstruct_frame_packed_d24) = self.fns
+
+    def hold(self, rows, mbh, mbw, mv_full, tag):
+        """The kernel against the plain version on `rows` (fused rows, or
+        entries alone when mv_full is None); returns max |error|."""
+        from h263_tpu_torch.ops import d24_cuda
+        from h263_tpu_torch.ops.d24 import d24_to_dense, unpack_fused
+
+        n = d24_cuda.launches
+        if mv_full is None:
+            got = (d24_cuda.d24_to_dense_cuda(rows, mbh, mbw),)
+            want = (d24_to_dense(rows, mbh, mbw),)
+        else:
+            got = d24_cuda.unpack_fused_cuda(rows, mbh, mbw, mv_full)
+            want = unpack_fused(rows, mbh, mbw, mv_full)
+        d24_cuda.launches = n
+        e = max(max_err(self.torch, a, b) for a, b in zip(got, want))
+        self.err = max(self.err, e)
+        if e:
+            fail(f"d24 kernel disagrees with its plain version ({tag}: max "
+                 f"|error| {e})")
+        return e
+
+    def fused(self, buf, *refs, mv_full, mbh, mbw):
+        self.hold(buf, mbh, mbw, mv_full, "fused rows")
+        self.calls["full" if mv_full else "slim"] += 1
+        return self.fns[0](buf, *refs, mv_full=mv_full, mbh=mbh, mbw=mbw)
+
+    def entries(self, pack, mvs, inter, *refs):
+        self.hold(pack, *inter.shape[1:], None, "the flip step's entries")
+        self.calls["entries"] += 1
+        return self.fns[1](pack, mvs, inter, *refs)
+
+
+def split_host_step(torch, dec, bufs, n=3):
+    """Where a host-front-end step's time goes: the native fused parse
+    (host clock), the host-to-device copy of the rows (CUDA events: from
+    the parse's end to the unpack's start on the stream, so the launch's
+    host latency too), the unpack kernel and the reconstruct kernel (CUDA
+    events), and what remains of the call's wall time."""
+    from h263_tpu_torch.decoder import reconstruct as rec
+
+    marks = {}
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    parse = dec.parse_batch_packed
+    unpack, recon = rec.unpack_fused_cuda, rec.reconstruct_from_dense
+
+    def timed_parse(*args, **kwargs):
+        t0 = time.perf_counter()
+        parse(*args, **kwargs)
+        marks["parse_ms"] = (time.perf_counter() - t0) * 1e3
+        marks["parse_end"] = event()
+
+    def timed_unpack(*args):
+        marks["d24_start"] = event()
+        out = unpack(*args)
+        marks["d24_end"] = event()
+        return out
+
+    def timed_recon(*args, **kwargs):
+        out = recon(*args, **kwargs)
+        marks["rec_end"] = event()
+        return out
+
+    dec.parse_batch_packed = timed_parse
+    rec.unpack_fused_cuda, rec.reconstruct_from_dense = timed_unpack, \
+        timed_recon
+    rows = []
+    try:
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.decode_step(bufs)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            h2d = marks["parse_end"].elapsed_time(marks["d24_start"])
+            d24 = marks["d24_start"].elapsed_time(marks["d24_end"])
+            rc = marks["d24_end"].elapsed_time(marks["rec_end"])
+            rest = wall - marks["parse_ms"] - h2d - d24 - rc
+            rows.append((wall, marks["parse_ms"], h2d, d24, rc, rest))
+            log(f"host split: one P-frame step {wall:.2f} ms wall: "
+                f"host_parse (native fused parse) {marks['parse_ms']:.2f} ms, "
+                f"H2D of the whole rows {h2d:.3f} ms, d24 unpack {d24:.3f} "
+                f"ms, reconstruct {rc:.3f} ms, remainder {rest:.2f} ms")
+    finally:
+        del dec.parse_batch_packed
+        rec.unpack_fused_cuda, rec.reconstruct_from_dense = unpack, recon
+    return rows
+
+
+def phase_host(torch, streams, golden, digests):
+    """The host-front-end path: BatchedStreamDecoder(1024, 352, 288) over
+    phase 5's GOP and lanes, each frame equal to DeviceFrontendDecoder's on
+    the same bytes, with the unpack kernel held against its plain version
+    on every step's rows; a forced MV-row flip and a forced PackOverflow;
+    the kernel on hand-made rows; then the readings."""
+    from h263_tpu_torch import BatchedStreamDecoder, DeviceFrontendDecoder
+    from h263_tpu_torch.ops import d24_cuda
+    from h263_tpu_torch.ops.d24 import unpack_fused
+    from h263_tpu_torch.testing.corpora import (
+        d24_rows,
+        planes_digest,
+        rgba_digest,
+    )
+    from h263_tpu_torch.utils import trace
+
+    lane_stream = (["fixture"] * 4 + ["fma"] * 4
+                   + [f"c{i % N_CORPORA}" for i in range(8, S_MAIN)])
+    sampled = [0, 4, *range(8, 8 + N_CORPORA), S_MAIN - 1]
+    idx = torch.tensor(sampled, device=DEVICE)
+    lists = [[streams[s][t] for s in lane_stream] for t in range(GOP)]
+    fourv = [fourv_corpus(SEED + 20 + k, 4) for k in range(4)]
+    flip_lists = [[fourv[(i // 8) % 4][t] if i % 8 == 3 else lists[t][i]
+                   for i in range(S_MAIN)] for t in range(4)]
+
+    # The reference: the device front-end on the same bytes.
+    ref = DeviceFrontendDecoder(S_MAIN, W, H, device=DEVICE)
+    want = [tuple(p.clone() for p in ref.decode_step(b)) for b in lists]
+    want_rgba = ref.present_rgba(deblock=True)
+    ref = DeviceFrontendDecoder(S_MAIN, W, H, device=DEVICE)
+    want_flip = [tuple(p.clone() for p in ref.decode_step(b))
+                 for b in flip_lists]
+    del ref
+    torch.cuda.synchronize()
+
+    def same(out, ref_planes, what):
+        if not all(torch.equal(a, b) for a, b in zip(out, ref_planes)):
+            fail(f"host path: {what} differs from the device front-end's "
+                 f"planes")
+
+    # The main path, counted.
+    dec = BatchedStreamDecoder(S_MAIN, W, H, device=DEVICE)
+    probe = D24Probe(torch)
+    torch.cuda.synchronize()
+    reset_launches()
+    with probe:
+        for t, bufs in enumerate(lists):
+            out = dec.decode_step(bufs)
+            same(out, want[t], f"frame {t}")
+            kept = [p.index_select(0, idx).cpu().numpy() for p in out]
+            for j, lane in enumerate(sampled):
+                if planes_digest(*(k[j] for k in kept)) != \
+                        digests[lane_stream[lane]]["planes"][t]:
+                    fail(f"host path: lane {lane} frame {t} differs from the "
+                         f"reference digest")
+            if int(kept[0][1][0, 2]) != (156 if t else 128):
+                fail(f"host path: FMA pixel (0,2) is {int(kept[0][1][0, 2])}")
+            check_fixture_luma(kept[0][0], golden[t], f"host frame {t}")
+        rgba = dec.present_rgba(deblock=True)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    if not torch.equal(rgba, want_rgba):
+        fail("host path: present_rgba differs from the device front-end's")
+    rgba_s = rgba.index_select(0, idx).cpu().numpy()
+    for j, lane in enumerate(sampled):
+        if rgba_digest(rgba_s[j]) != digests[lane_stream[lane]]["rgba"][-1]:
+            fail(f"host path: lane {lane} RGBA differs from the reference "
+                 f"digest")
+    log(f"host path: S={S_MAIN} CIF x {GOP} frames, every frame's planes "
+        f"equal the device front-end's (torch.equal) and present_rgba too; "
+        f"{len(sampled)} sampled lanes equal the reference digests; FMA 156;"
+        f" fixture within +-1; launches {launches}; the unpack kernel held "
+        f"exact against its plain version on every step's rows "
+        f"{probe.calls}")
+    if (launches["d24_unpack"] != GOP or launches["reconstruct"] != GOP
+            or launches["present_rgba"] != 1
+            or launches["entropy_automaton"] != 0):
+        fail("the host path must launch the unpack and reconstruct kernels "
+             "once a step, the present kernel once a present, and no "
+             "automaton")
+    del want_rgba, rgba
+
+    # A forced flip and a forced PackOverflow, against the device front-end.
+    counters = trace.get_counters()
+    fdec = BatchedStreamDecoder(S_MAIN, W, H, device=DEVICE)
+    with probe:
+        for t, bufs in enumerate(flip_lists):
+            same(fdec.decode_step(bufs), want_flip[t], f"flip set frame {t}")
+    odec = BatchedStreamDecoder(S_MAIN, W, H, pack_cap=2048, device=DEVICE)
+    for t in range(3):
+        same(odec.decode_step(lists[t]), want[t], f"pack_cap=2048 frame {t}")
+    torch.cuda.synchronize()
+    after = trace.get_counters()
+    rose = {k: after.get(k, 0) - counters.get(k, 0)
+            for k in ("steps_fused_flip", "pack_overflow_fallbacks")}
+    log(f"host path: a lane set with INTER4V from frame 2 on: planes equal "
+        f"over 4 frames, MV rows full {fdec._mv_full}; pack_cap=2048: "
+        f"planes equal over 3 frames; counters rose {rose}; unpack checks "
+        f"{probe.calls}")
+    if (min(rose.values()) < 1 or not fdec._mv_full
+            or probe.calls["entries"] < 1 or probe.calls["full"] < 1):
+        fail("the flip or the PackOverflow fallback was not exercised")
+    del fdec, odec, want_flip
+
+    # The kernel on hand-made rows.
+    rng = np.random.default_rng(SEED + 11)
+    n_hand = 0
+    for h, w in ((H, W), ODD):
+        mbh, mbw = -(-h // 16), -(-w // 16)
+        for mv_full in (None, False, True):
+            rows = torch.as_tensor(d24_rows(rng, S_ODD, 900, mbh, mbw,
+                                            mv_full)).to(DEVICE)
+            probe.hold(rows, mbh, mbw, mv_full, f"hand-made rows {w}x{h}")
+            n_hand += 1
+    log(f"d24: kernel exact on {n_hand} sets of {S_ODD} hand-made rows "
+        f"(collisions, cursor -1, escapes, tails past the end) at {W}x{H} "
+        f"and {ODD[1]}x{ODD[0]}, entries alone and slim and full fused rows;"
+        f" max_abs_err={probe.err}")
+
+    # Readings.  The unpack on a real P-step's rows.
+    mbh, mbw = H // 16, W // 16
+    packed = dec._packed[dec._packed_idx]
+    used = 2 * mbh * mbw + (mbh * mbw + 7) // 8 + 3 * packed.cut
+    rows = packed.fused_t.to(DEVICE)[:, :used]     # as the step passes them
+    n = d24_cuda.launches
+    ms = cuda_ms(lambda: d24_cuda.unpack_fused_cuda(rows, mbh, mbw, False),
+                 20)
+    d24_cuda.launches = n
+    plain_ms = cuda_ms(lambda: unpack_fused(rows, mbh, mbw, False), 3)
+    nmb = mbh * mbw
+    nbytes = rows.numel() + S_MAIN * nmb * (6 * 128 + 16 + 1)
+    b_ms = bytes_bound_ms(nbytes)
+    log(f"d24: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per call on a "
+        f"P-step's rows (S={S_MAIN} CIF, cut {packed.cut}, {rows.numel()} B "
+        f"of rows); bound: bytes {b_ms:.4f} ms ({nbytes} B); no single "
+        f"PyTorch call computes the unpack (a cumulative sum, the position "
+        f"map and a scatter-add), so library_ms is null")
+
+    split_host_step(torch, dec, lists[GOP - 1])
+
+    # The transfer: whole pinned rows (the step's choice), against their
+    # used prefix copied into a pinned contiguous buffer, then to the card.
+    ship = torch.empty((S_MAIN, used), dtype=torch.uint8, pin_memory=True)
+
+    def prefix():
+        np.copyto(ship.numpy(), packed.fused[:, :used])
+        return ship.to(DEVICE, non_blocking=True)
+
+    def whole():
+        return packed.fused_t.to(DEVICE, non_blocking=True)
+
+    walls = {"prefix": [], "whole": []}
+    for kind in ("prefix", "whole", "whole", "prefix", "prefix", "whole"):
+        fn = prefix if kind == "prefix" else whole
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[kind].append(round((time.perf_counter() - t0) * 1e3, 3))
+    log(f"host transfer of a P-step's rows, host clock to the end of the "
+        f"copy: used prefix ({used * S_MAIN} B, host copy + H2D) ms "
+        f"{walls['prefix']}; whole rows ({packed.fused.nbytes} B, H2D, the "
+        f"step's choice) ms {walls['whole']}")
+
+    # The native parse by thread count (entropy.cpp reads
+    # H263_TPU_PARSE_THREADS at every call, every core by default): the
+    # whole `parse_batch_packed`, and the native call alone.
+    by_threads, native_only = {}, {}
+    bufs, has_ref = dec._prepare_sorenson_buffers(lists[GOP - 1], None)
+    for k in (1, 2, 4, 8, 1):
+        os.environ["H263_TPU_PARSE_THREADS"] = str(k)
+        try:
+            for _ in range(3):
+                p = dec.next_packed_batch()
+                t0 = time.perf_counter()
+                dec.parse_batch_packed(lists[GOP - 1], p)
+                t1 = time.perf_counter()
+                p.fused_parser.parse(bufs, has_ref)
+                t2 = time.perf_counter()
+                by_threads.setdefault(k, []).append(round((t1 - t0) * 1e3, 2))
+                native_only.setdefault(k, []).append(
+                    round((t2 - t1) * 1e3, 2))
+        finally:
+            del os.environ["H263_TPU_PARSE_THREADS"]
+    log(f"host_parse of {S_MAIN} CIF P-frames by parse threads, ms: "
+        f"{by_threads}; the native call alone: {native_only}")
+
+    del want, ship
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dec.decode_step(lists[GOP - 1])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    # Back to back against the device front-end, in turns.
+    devdec = DeviceFrontendDecoder(S_MAIN, W, H, device=DEVICE)
+    pipe = BatchedStreamDecoder(S_MAIN, W, H, device=DEVICE)
+
+    def loop(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_LOOP):
+            if kind == "pipelined":
+                for _ in pipe.decode_stream_pipelined(iter(lists)):
+                    pass
+            else:
+                d = devdec if kind == "device" else dec
+                for bufs in lists:
+                    d.decode_step(bufs)
+        torch.cuda.synchronize()
+        return round(N_LOOP * GOP * S_MAIN / (time.perf_counter() - t0), 1)
+
+    rates = {"device": [], "host": [], "pipelined": []}
+    for kind in ("device", "host", "pipelined", "pipelined", "host",
+                 "device"):
+        rates[kind].append(loop(kind))
+    trace.reset_metrics()
+    trace.trace_enabled(True)
+    try:
+        for bufs in lists:
+            dec.decode_step(bufs)
+        torch.cuda.synchronize()
+    finally:
+        trace.trace_enabled(False)
+    log(f"host path: back to back, {N_LOOP} GOPs of {S_MAIN} CIF streams, "
+        f"one synchronise at the end, frames/s: device front-end decode_step"
+        f" {rates['device']}, host front-end decode_step {rates['host']}, "
+        f"host decode_stream_pipelined {rates['pipelined']}; peak device "
+        f"memory of a host P-step {peak / 2**30:.2f} GiB, "
+        f"{(peak - held) / 2**30:.2f} GiB over what was held before it (the "
+        f"decoder's planes, the phase's rows); host cores {os.cpu_count()}")
+    log(f"host path: stage timers (host clock) of one GOP: "
+        f"{json.dumps(trace.get_metrics())}")
+    del dec, devdec, pipe, rows
+    record = dict(name="d24_unpack", route="cuda",
+                  source="h263_tpu_torch/csrc/d24.cu",
+                  replaces="h263_tpu/decoder/reconstruct.py:252 (XLA ops, "
+                           "no Pallas kernel)",
+                  max_abs_err=probe.err, ms=ms, plain_ms=plain_ms,
+                  bound_ms=b_ms, bound_by="bytes", library_ms=None)
+    return record, launches
+
+
 def main() -> int:
     import torch
 
@@ -1408,12 +1915,12 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     log(f"env: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; host: {host_cpus()}")
 
     t0 = time.perf_counter()
     kernels.lib()
     native.lib()
-    log(f"build: kernels + native prep ready in "
+    log(f"build: kernels + native library ready in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {kernels.last_build_seconds})")
 
     rng = np.random.default_rng(SEED)
@@ -1446,6 +1953,12 @@ def main() -> int:
     plain = {k: v[2] for k, v in streams.items()}
     for more in (phase_window(torch, plain, digests),
                  phase_pool_window(torch, streams, golden, digests)):
+        for k, n in more.items():
+            launches[k] += n
+    record, more = phase_host(torch, plain, golden, digests)
+    records.append(record)
+    for more in (more, phase_pool(torch, streams, golden, digests,
+                                  frontend="host")):
         for k, n in more.items():
             launches[k] += n
     for mod in ("jax", "h263_tpu"):

@@ -66,6 +66,12 @@ SIGNATURES = {
     #  [S,mbh,mbw], ref y/cb/cr u8, out y/cb/cr u8, S, mbh, mbw, h, w,
     #  basis f32 [64] on the device, stream)
     "h263_reconstruct": [_P] * 9 + [_I] * 5 + [_P, _P],
+    # (rows u8 [S, L], row pitch in bytes, entries per row, MV bytes per MB
+    #  (2 or 8; 0: the rows hold entries alone and only dense is written),
+    #  S, mbh, mbw, zigzag u8 [64] on the device, dense int16 [S,6*nmb,64],
+    #  mvs int16 [S,mbh,mbw,4,2], inter u8 [S,mbh,mbw], stream)
+    "h263_d24_unpack": [_P, ctypes.c_int64, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,12 @@
-"""The native header prep of the device front-end (`prep.cpp`), built by
-g++ at first use and bound with ctypes.
+"""The port's native host library: `entropy.cpp`, a byte-for-byte copy of
+`h263_tpu/native/entropy.cpp` with its VLC tables `tables.h` (written by
+`gen_tables.py` from the port's `vlc_tables.py`), built by g++ at first use
+and bound with ctypes.  It holds the host entropy decoder (the dense parse
+and the fused batch parse of `bindings.py`) and the header prep of the
+device front-end (`DevicePrepBatch` below).
 
-The library goes to `native/build/libh263prep_<hash>.so`, the hash taken
-over the source and the compiler flags, so an edited source builds anew
+The library goes to `native/build/libh263entropy_<hash>.so`, the hash taken
+over the sources and the compiler flags, so an edited source builds anew
 and a built one is never rebuilt.  Concurrent builders (test workers,
 processes of one host) take an `fcntl` lock on `build/.lock`, compile to a
 per-process temporary file and `os.replace` it into place, so no process
@@ -23,13 +27,43 @@ from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "prep.cpp"
+SRC = Path(__file__).resolve().parent / "entropy.cpp"
 BUILD = Path(__file__).resolve().parent / "build"
-GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# The JAX package's flags: the decoder is integer code, so they do not
+# change its results.
+GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread"]
 
-# Error codes of prep.cpp (those of h263_tpu/native/entropy.cpp).
+# Error codes of entropy.cpp.
 E_EOF = -100
 E_INVALID_BITSTREAM = -10
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_U64 = ctypes.c_uint64
+# C entry points: name -> argtypes (every pointer c_void_p, so that no
+# address is cut to 32 bits); each returns int.
+SIGNATURES = {
+    # (buffers, lengths, n, expected w, h, flat stage, stage bytes,
+    #  meta [6][n], hdr [n][8], rc [n])
+    "h263_device_prepare_ragged": [_P, _P, _I32, _I32, _I32, _P,
+                                   ctypes.c_int64, _P, _P, _P],
+    # (data, nbytes, start_bit, w, h, ptype, flags, version, quant, range x,
+    #  range y, coeffs/class y, cb, cr, mvs, inter, pred_scratch, pack_pos,
+    #  pack_val, pack_cap, pack_count, end_bit, mvs_slim, mv8, inter_bits,
+    #  mv8_stride, mb_flags)
+    "h263_parse_frame": [_P, _U64, _U64, _I32, _I32, _I32, _I32, _I32, _I32,
+                         _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _I32, _P, _P, _P, _P, _P, _I32, _P],
+    # (buffers, lengths, n, w, h, xflags, has_reference, hdr [n][8], mvs,
+    #  inter, fused rows, row bytes, mv8 stride, pred_scratch, pack_cap,
+    #  ladder, n_ladder, counts, flags, cut, failed stream)
+    "h263_sorenson_decode_batch_fused": [_P, _P, _I32, _I32, _I32, _I32, _P,
+                                         _P, _P, _P, _P, ctypes.c_int64,
+                                         _I32, _P, _I32, _P, _I32, _P, _P,
+                                         _P, _P],
+    "h263_abi_version": [],
+}
+ABI_VERSION = 6
 
 _lock = threading.Lock()
 _lib = None
@@ -38,19 +72,21 @@ _lib = None
 def _library_path() -> Path:
     h = hashlib.sha256()
     h.update(" ".join(GXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD / f"libh263prep_{h.hexdigest()[:16]}.so"
+    for p in (SRC, SRC.with_name("tables.h")):
+        if p.exists():
+            h.update(p.read_bytes())
+    return BUILD / f"libh263entropy_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile prep.cpp unless the library for its current content exists;
-    returns the library's path."""
+    """Compile entropy.cpp unless the library for its current content
+    exists; returns the library's path."""
     so = _library_path()
     if so.exists():
         return so
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the native header prep of "
+        raise RuntimeError("g++ not found: the native host library of "
                            "h263_tpu_torch needs a C++ compiler")
     BUILD.mkdir(parents=True, exist_ok=True)
     with open(BUILD / ".lock", "w") as lockf:
@@ -70,16 +106,17 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded prep library (built on first call)."""
+    """The loaded native library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            P = ctypes.c_void_p
-            fn = handle.h263_device_prepare_ragged
-            fn.argtypes = [P, P, ctypes.c_int32, ctypes.c_int32,
-                           ctypes.c_int32, P, ctypes.c_int64, P, P, P]
-            fn.restype = ctypes.c_int
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            if handle.h263_abi_version() != ABI_VERSION:
+                raise RuntimeError("native library ABI version mismatch")
             _lib = handle
         return _lib
 

@@ -38,7 +38,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..decoder.reconstruct import present_rgba_batched, reconstruct_from_dense
+from ..decoder.reconstruct import (
+    PresentParams,
+    present_rgba_batched,
+    reconstruct_from_dense,
+)
 from ..native import DevicePrepBatch
 from ..ops.deblock import QUANT_TO_STRENGTH
 from ..parser.automaton_cuda import parse_assemble_cuda
@@ -98,11 +102,7 @@ class DeviceFrontendDecoder:
                                   pin_memory=self._pin) for _ in range(2)]
         self._copied = [None, None]
         self._pp = 0
-        # Presentation parameters of one call, staged as bytes: int32
-        # strength [S], then bool flags [S]; the event of their last copy.
-        self._params = torch.zeros(5 * n_streams, dtype=torch.uint8,
-                                   pin_memory=self._pin)
-        self._params_copied = None
+        self._params = PresentParams(n_streams, self.device)
 
     # -- host-side helpers ---------------------------------------------------
 
@@ -340,16 +340,8 @@ class DeviceFrontendDecoder:
     def present_rgba(self, deblock: Optional[bool] = None):
         """RGBA uint8 [S, H, W, 4] of the current planes: per-stream deblock
         (the stream's advisory flag, or `deblock` for all) + BT.601."""
-        n4 = 4 * self.n
-        if self._params_copied is not None:
-            self._params_copied.synchronize()
-        host = self._params.numpy()
-        host[:n4].view(np.int32)[:] = QUANT_TO_STRENGTH[self._last_quant & 31]
-        host[n4:] = self._last_deblock if deblock is None else deblock
-        dev = self._params.to(self.device, non_blocking=True, copy=True)
-        if self.device.type == "cuda":
-            self._params_copied = torch.cuda.Event()
-            self._params_copied.record()
-        return present_rgba_batched(
-            self.ref_y, self.ref_cb, self.ref_cr,
-            dev[:n4].view(torch.int32), dev[n4:].view(torch.bool))
+        strength, flags = self._params.to_device(
+            QUANT_TO_STRENGTH[self._last_quant & 31],
+            self._last_deblock if deblock is None else deblock)
+        return present_rgba_batched(self.ref_y, self.ref_cb, self.ref_cr,
+                                    strength, flags)

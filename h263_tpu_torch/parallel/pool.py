@@ -1,10 +1,12 @@
 """Mixed-resolution stream pool with dynamic membership, PyTorch.
 
-Port of `h263_tpu/parallel/pool.py::StreamPool` with the device entropy
-front-end (`frontend="device"`) for Sorenson Spark streams.  Streams of
-different resolutions cannot share one lockstep batch, so the pool groups
-them into per-resolution `DeviceFrontendDecoder` buckets; within a bucket,
-slots decode in lockstep:
+Port of `h263_tpu/parallel/pool.py::StreamPool` for Sorenson Spark streams,
+with either entropy front-end: `frontend="device"` (the port's default:
+`DeviceFrontendDecoder` buckets, the entropy automaton on the card) or
+`"host"` (`BatchedStreamDecoder` buckets, the native host parse and the
+fused transport; the JAX package's default).  Streams of different
+resolutions cannot share one lockstep batch, so the pool groups them into
+per-resolution buckets; within a bucket, slots decode in lockstep:
 
 * **join** -- `add_stream` at any time; a free slot is recycled, or the
   bucket doubles (slot indices preserved, planes and per-stream state
@@ -16,19 +18,25 @@ slots decode in lockstep:
   and state do not move;
 * **resolution change** -- a stream whose next frame is an I-frame at new
   dimensions moves to that resolution's bucket (reference planes reset, as
-  the single-stream decoder does on an I-frame); a non-I frame at other
-  dimensions, or dimensions beyond `max_dims`, raises PictureFormatInvalid
-  and leaves the stream where it was.
+  the single-stream decoder does on an I-frame; running options carry
+  over); the frame must first pass the host parse in full with no INTER
+  macroblock.  A non-I frame at other dimensions, a frame that fails that
+  parse, or dimensions beyond `max_dims`, raises PictureFormatInvalid and
+  leaves the stream where it was.
 
-`decode_steps` decodes a window of T frames with one
+A device pool's `decode_steps` decodes a window of T frames with one
 `DeviceFrontendDecoder.decode_steps` per bucket (one copy, one automaton
 launch, T reconstructions), frame for frame equal to T `decode_step` calls;
 a window in which a stream changes resolution falls back to those calls
-(counted as `pool_window_fallbacks`).
+(counted as `pool_window_fallbacks`), and a host pool always runs them.
 
-Not ported (see ROADMAP): `frontend="host"`, `switch_frontend` and the
-adaptive trigger, standard-H.263 pools, and `resolve_overflows` (the port's
-automaton has no tape and never overflows).
+The device front-end stays the port's default: the H100 readings of
+PERF.md favour it (phase 11 of chip_smoke.py sets the host front-end beside
+it).
+
+Not ported (see ROADMAP): `switch_frontend` and the adaptive trigger,
+standard-H.263 pools, and `resolve_overflows` (the port's automaton has no
+tape and never overflows).
 """
 
 from __future__ import annotations
@@ -38,18 +46,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..native import DevicePrepBatch
-from ..parser.automaton_cuda import parse_assemble_cuda
-from ..parser.tables import ST_OK
+from ..bitio import BitReader
+from ..parser.frame import parse_frame_auto
+from ..parser.picture import decode_picture
 from ..types import DecoderOption, H263Error, PictureFormatInvalid
 from ..utils.trace import incr
+from .batch import BatchedStreamDecoder
 from .device_batch import DeviceFrontendDecoder
 
 
 class _Bucket:
     __slots__ = ("dec", "slots", "free")
 
-    def __init__(self, dec: DeviceFrontendDecoder):
+    def __init__(self, dec):
         self.dec = dec
         self.slots: dict = {}   # stream_id -> slot index
         self.free: list = list(range(dec.n))[::-1]  # stack of free slots
@@ -169,27 +178,33 @@ class StreamPool:
     def __init__(self, decoder_options: DecoderOption = DecoderOption.SORENSON_SPARK_BITSTREAM,
                  frontend: str = "device", max_dims: tuple = (2048, 2048), *,
                  device="cuda", max_frame_bytes: Optional[int] = None):
-        """`max_dims` bounds the resolutions a mid-stream change may create:
-        a bucket's planes are sized by its dims, so an unchecked (possibly
-        corrupt) header must not allocate a 65535x65535 bucket -- frames
-        beyond the bound fail per stream instead.  `device` and
-        `max_frame_bytes` pass to the bucket decoders."""
-        if frontend != "device":
-            raise ValueError(f"frontend {frontend!r}: only the device "
-                             f"front-end is ported")
+        """`frontend` selects each bucket's decoder: "device"
+        (`DeviceFrontendDecoder`, the default) or "host"
+        (`BatchedStreamDecoder`).  `max_dims` bounds the resolutions a
+        mid-stream change may create: a bucket's planes are sized by its
+        dims, so an unchecked (possibly corrupt) header must not allocate a
+        65535x65535 bucket -- frames beyond the bound fail per stream
+        instead.  `device` passes to the bucket decoders and
+        `max_frame_bytes` to device ones."""
+        if frontend not in ("host", "device"):
+            raise ValueError(f"unknown frontend {frontend!r}")
         if not decoder_options & DecoderOption.SORENSON_SPARK_BITSTREAM:
-            raise ValueError("the device front-end pool decodes Sorenson "
-                             "streams only")
+            raise ValueError("the port's pool decodes Sorenson streams only")
         self.decoder_options = decoder_options
         self.frontend = frontend
         self.max_dims = max_dims
         self.device = device
         self.max_frame_bytes = max_frame_bytes
         self._pending: dict = {}          # (w, h) -> [stream_id, ...]
+        self._pending_running: dict = {}  # stream_id -> carried options
         self._buckets: dict = {}          # (w, h) -> _Bucket
         self._dims: dict = {}             # stream_id -> (w, h)
 
     def _make_decoder(self, n: int, width: int, height: int):
+        if self.frontend == "host":
+            return BatchedStreamDecoder(n, width, height,
+                                        self.decoder_options,
+                                        device=self.device)
         return DeviceFrontendDecoder(n, width, height, self.decoder_options,
                                      device=self.device,
                                      max_frame_bytes=self.max_frame_bytes)
@@ -212,6 +227,7 @@ class StreamPool:
         """Unregister a stream; its slot pads until recycled by a join."""
         key = self._dims.pop(stream_id)
         incr("pool_leaves")
+        self._pending_running.pop(stream_id, None)
         pend = self._pending.get(key)
         if pend and stream_id in pend:
             pend.remove(stream_id)
@@ -221,13 +237,13 @@ class StreamPool:
         bucket.dec.reset_slot_state(slot)
         bucket.free.append(slot)
 
-    def _join(self, key, stream_id) -> int:
+    def _join(self, key, stream_id, running=None) -> int:
         bucket = self._buckets[key]
         if not bucket.free:
             self._grow(key)
             bucket = self._buckets[key]
         slot = bucket.free.pop()
-        bucket.dec.reset_slot_state(slot)
+        bucket.dec.reset_slot_state(slot, running)
         bucket.slots[stream_id] = slot
         return slot
 
@@ -236,7 +252,10 @@ class StreamPool:
         bucket = _Bucket(self._make_decoder(len(ids), key[0], key[1]))
         self._buckets[key] = bucket
         for sid in ids:
-            bucket.slots[sid] = bucket.free.pop()
+            slot = bucket.slots[sid] = bucket.free.pop()
+            running = self._pending_running.pop(sid, None)
+            if running is not None:  # carried across a pending rebucket
+                bucket.dec.reset_slot_state(slot, running)
 
     def _grow(self, key) -> None:
         """Double a full bucket's capacity, migrating planes and per-stream
@@ -245,13 +264,17 @@ class StreamPool:
         n_old = old.dec.n
         n_new = max(2 * n_old, 1)
         dec = self._make_decoder(n_new, key[0], key[1])
-        dec._last_quant[:n_old] = old.dec._last_quant
-        dec._last_deblock[:n_old] = old.dec._last_deblock
-        if old.dec.last_status is not None:
-            status = torch.zeros(n_new, dtype=old.dec.last_status.dtype,
-                                 device=dec.device)
-            status[:n_old] = old.dec.last_status
-            dec.last_status = status
+        if self.frontend == "host":
+            dec.states[:n_old] = old.dec.states
+            dec._mv_full = old.dec._mv_full
+        else:
+            dec._last_quant[:n_old] = old.dec._last_quant
+            dec._last_deblock[:n_old] = old.dec._last_deblock
+            if old.dec.last_status is not None:
+                status = torch.zeros(n_new, dtype=old.dec.last_status.dtype,
+                                     device=dec.device)
+                status[:n_old] = old.dec.last_status
+                dec.last_status = status
         for name in ("ref_y", "ref_cb", "ref_cr"):
             getattr(dec, name)[:n_old] = getattr(old.dec, name)
         bucket = _Bucket(dec)
@@ -265,21 +288,21 @@ class StreamPool:
     def _validate_rebucket_frame(self, buf: bytes, w: int, h: int) -> bool:
         """Full entropy-layer validation of a resolution-change frame BEFORE
         the old slot's state is destroyed (an errored picture must leave
-        state untouched, state.rs:119-137): the native header prep, then
-        the automaton on the pool's device (the CUDA kernel, or on the CPU
-        its plain version), for this one frame.  It must parse without
-        error and hold no INTER macroblock -- the new bucket has no
-        reference at the new size, so an EOF tail-fill would predict from
-        nothing."""
-        stage = np.zeros(((len(buf) + 3) // 4 + 1) * 4, dtype=np.uint8)
-        meta = np.zeros((6, 1), dtype=np.int32)
-        if DevicePrepBatch(1, w, h).prepare_ragged([buf], stage, meta):
+        state untouched, state.rs:119-137), as the JAX pool does it for
+        both front-ends: the host header parse and the native macroblock
+        parse of this one frame, on the host.  It must parse without error
+        and hold no INTER macroblock -- the new bucket has no reference at
+        the new size, so an EOF tail-fill would predict from nothing."""
+        try:
+            r = BitReader(bytes(buf))
+            pic = decode_picture(r, self.decoder_options, None)
+            if pic is None:
+                return False
+            fd = parse_frame_auto(r, pic, self.decoder_options, pic.options,
+                                  w, h)
+            return not fd.inter.any()
+        except H263Error:
             return False
-        _, _, inter, status = parse_assemble_cuda(
-            torch.from_numpy(stage).view(-1, 4).to(self.device),
-            torch.from_numpy(meta).to(self.device),
-            mbh=-(-h // 16), mbw=-(-w // 16), width=w, height=h)
-        return int(status[0]) == ST_OK and not bool(inter.any())
 
     def _rebucket(self, stream_id, new_key, is_iframe: bool,
                   buf: bytes) -> None:
@@ -300,7 +323,8 @@ class StreamPool:
             pend.remove(stream_id)
             self._dims[stream_id] = new_key
             if new_key in self._buckets:
-                self._join(new_key, stream_id)
+                self._join(new_key, stream_id,
+                           self._pending_running.pop(stream_id, None))
             else:
                 self._pending.setdefault(new_key, []).append(stream_id)
             return
@@ -310,12 +334,19 @@ class StreamPool:
                 f"failed full validation; keeping the stream's state")
         bucket = self._buckets[old_key]
         slot = bucket.slots.pop(stream_id)
+        # Running options carry across the rebucket: a host bucket keeps
+        # them per stream; the device front-end's Sorenson headers carry
+        # none.
+        states = getattr(bucket.dec, "states", None)
+        running = states[slot].running_options if states else None
         bucket.dec.reset_slot_state(slot)
         bucket.free.append(slot)
         self._dims[stream_id] = new_key
         if new_key in self._buckets:
-            self._join(new_key, stream_id)
+            self._join(new_key, stream_id, running)
         else:
+            if running:
+                self._pending_running[stream_id] = running
             self._pending.setdefault(new_key, []).append(stream_id)
 
     # -- decode ---------------------------------------------------------------
@@ -328,7 +359,9 @@ class StreamPool:
         planes.  A stream whose frame is an I-frame at new dimensions is
         rebucketed first.  Every bucket steps even when one raises: the
         first error surfaces afterwards, with the step's results attached
-        as `pool_step_result`.
+        as `pool_step_result`.  A device bucket that raises has stepped
+        every lane (errored lanes decode the identity frame); a host bucket
+        that raises has committed nothing and updated no plane.
         """
         unknown = set(buffers) - set(self._dims)
         if unknown:
@@ -363,10 +396,8 @@ class StreamPool:
             try:
                 y, cb, cr = dec.decode_step(batch, mask=mask)
             except H263Error as e:
-                # Per-stream isolation: the bucket decoder stepped every lane
-                # (errored lanes got identity frames) before raising, so the
-                # other buckets must still step; this bucket's planes are not
-                # attached.
+                # Per-stream isolation: the other buckets must still step;
+                # this bucket's planes are not attached.
                 if first_err is None:
                     first_err = e
                 continue
@@ -388,9 +419,10 @@ class StreamPool:
         the identity frame, and the first error is raised after every
         bucket has stepped, with the window's results attached as
         `pool_window_results`.  Unknown ids raise KeyError before anything
-        steps.  A window in which any stream's header names other
-        dimensions than its bucket's (a resolution change needs the
-        per-frame pre-pass) runs as T `decode_step` calls instead.
+        steps.  A host pool (`BatchedStreamDecoder` has no window step), and
+        a window in which any stream's header names other dimensions than
+        its bucket's (a resolution change needs the per-frame pre-pass),
+        run as T `decode_step` calls instead.
         """
         T = len(frame_lists)
         if T == 0:
@@ -399,6 +431,8 @@ class StreamPool:
         if unknown:
             raise KeyError(
                 f"unregistered streams: {sorted(unknown, key=repr)!r}")
+        if self.frontend == "host":
+            return [self.decode_step(b) for b in frame_lists]
         for b in frame_lists:
             for sid, buf in b.items():
                 sniffed = _sniff_sorenson(bytes(buf))

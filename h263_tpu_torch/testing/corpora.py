@@ -201,3 +201,29 @@ def load_digests() -> dict:
     own quantizer (`present_rgba(deblock=True)` after frame t)."""
     with open(DIGESTS) as fh:
         return json.load(fh)["sequences"]
+
+
+def d24_rows(rng, S: int, K: int, mbh: int, mbw: int, mv_full=None):
+    """uint8 rows of K hand-made delta24 entries each, over every edge of
+    the unpack: leading entries at cursor -1 (dropped), entries that meet
+    at one position (their values add modulo 2^16), value-0 escapes of the
+    largest delta, values of both signs and a tail that walks past the
+    last coefficient (dropped).  With `mv_full` (True or False) each row
+    starts with random int8 MVs (8 or 2 B/MB) and INTER bits, as a fused
+    row."""
+    nmb = mbh * mbw
+    delta = rng.choice([0, 1, 1, 1, 2, 3, 16, 383], size=(S, K))
+    val = rng.integers(-2048, 2048, (S, K))
+    val[rng.random((S, K)) < 0.1] = 0
+    delta[:, :3] = 0                       # cursor -1: dropped
+    escape = rng.random((S, K)) < 0.02
+    delta[escape], val[escape] = 4095, 0
+    delta[:, -K // 8:] = 4095              # past the last coefficient
+    w = (delta << 12) | (val & 0xFFF)
+    rows = np.stack([(w >> 16) & 0xFF, (w >> 8) & 0xFF, w & 0xFF],
+                    axis=-1).astype(np.uint8).reshape(S, 3 * K)
+    if mv_full is None:
+        return rows
+    head = rng.integers(0, 256, (S, (8 if mv_full else 2) * nmb
+                                 + (nmb + 7) // 8), dtype=np.uint8)
+    return np.concatenate([head, rows], axis=1)

@@ -1,9 +1,18 @@
-"""H.263 (01/2005) variable-length-code tables, as (bit-string, value) lists.
+"""H.263 (01/2005) variable-length-code tables: a copy of
+`h263_tpu/vlc_tables.py`, so that the port imports nothing of the JAX package
+(`tests/test_torch_tables.py` holds every list equal to the JAX package's).
 
-A copy of the code lists of `h263_tpu/vlc_tables.py` that the port needs:
-the packed device tables (`parser/tables.py`) and the test encoder
-(`testing/encoder.py`) are built from them.  `tests/test_torch_tables.py`
-holds every list equal to the JAX package's.
+Each table is written as an explicit list of (bit-string, decoded value)
+pairs taken from the spec (Tables 7-9, 13-14, 16/H.263), then compiled into a
+flat 2^maxlen prefix lookup table so the reader can decode any symbol with a
+single peek.  The host parsers (`bitio.py`, `parser/`) read the compiled
+tables, `native/gen_tables.py` writes them into `native/tables.h`, and the
+packed device tables (`parser/tables.py`) and the test encoder
+(`testing/encoder.py`) are built from the code lists.
+
+The compiler verifies each table is a *complete* prefix code (every bit
+pattern resolves, no overlaps), which structurally guards against
+transcription errors.
 """
 
 from __future__ import annotations
@@ -15,6 +24,37 @@ from .types import MacroblockType
 VLC_INVALID = "invalid"
 VLC_STUFFING = "stuffing"
 VLC_ESCAPE = "escape"
+
+
+class PrefixLut:
+    """A complete prefix-code lookup table.
+
+    table[word] = (value, code_length) where word is the next `maxlen` bits
+    of the stream (zero-padded at EOF).
+    """
+
+    __slots__ = ("maxlen", "table", "codes")
+
+    def __init__(self, codes: list[tuple[str, object]]):
+        self.codes = codes
+        maxlen = max(len(c) for c, _ in codes)
+        self.maxlen = maxlen
+        size = 1 << maxlen
+        table: list = [None] * size
+        for code, value in codes:
+            n = len(code)
+            start = int(code, 2) << (maxlen - n)
+            entry = (value, n)
+            for i in range(start, start + (1 << (maxlen - n))):
+                if table[i] is not None:
+                    raise ValueError(f"overlapping code {code}")
+                table[i] = entry
+        if any(e is None for e in table):
+            missing = next(i for i, e in enumerate(table) if e is None)
+            raise ValueError(
+                f"incomplete prefix code: pattern {missing:0{maxlen}b} unassigned"
+            )
+        self.table = table
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +119,17 @@ MCBPC_P_CODES = [
     ("0000000001111", (_P4Q, True, True)),
     ("0000000000", VLC_INVALID),
     ("0000000001101", VLC_INVALID),
+]
+
+# ---------------------------------------------------------------------------
+# MODB — Table 11/H.263 (PB-frames mode).
+# Value: (has_cbpb, has_mvdb)
+# ---------------------------------------------------------------------------
+
+MODB_CODES = [
+    ("0", (False, False)),
+    ("10", (False, True)),
+    ("11", (True, True)),
 ]
 
 # ---------------------------------------------------------------------------
@@ -251,6 +302,18 @@ TCOEF_CODES: list[tuple[str, object]] = [
     ("00000000111", (0, 0, 10)),
     ("000000000", VLC_INVALID),
 ]
+
+# ---------------------------------------------------------------------------
+# Compiled LUTs
+# ---------------------------------------------------------------------------
+
+MCBPC_I = PrefixLut(MCBPC_I_CODES)
+MCBPC_P = PrefixLut(MCBPC_P_CODES)
+MODB = PrefixLut(MODB_CODES)
+CBPY = PrefixLut(CBPY_CODES)
+MVD = PrefixLut(MVD_CODES)
+TCOEF = PrefixLut(TCOEF_CODES)
+
 
 # ---------------------------------------------------------------------------
 # Zigzag scan — figure 5/H.263 (cf. rle.rs:6-71).  Generated algorithmically;

@@ -11,18 +11,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from h263_tpu_torch import BatchedStreamDecoder  # noqa: E402
 from h263_tpu_torch import DeviceFrontendDecoder  # noqa: E402
 from h263_tpu_torch.decoder.reconstruct import (  # noqa: E402
     present_rgba_batched,
 )
 from h263_tpu_torch.native import DevicePrepBatch  # noqa: E402
 from h263_tpu_torch.ops import (  # noqa: E402
+    d24_cuda,
     deblock_cuda,
     idct_cuda,
     present_cuda,
     reconstruct_cuda,
     yuv_cuda,
 )
+from h263_tpu_torch.ops.d24 import d24_to_dense, unpack_fused  # noqa: E402
 from h263_tpu_torch.ops.deblock import deblock_batched  # noqa: E402
 from h263_tpu_torch.ops.idct import idct_residual_fused  # noqa: E402
 from h263_tpu_torch.ops.present import present_rgba_plain  # noqa: E402
@@ -33,7 +36,7 @@ from h263_tpu_torch.ops.yuv import yuv420_to_rgba  # noqa: E402
 from h263_tpu_torch.parallel.pool import StreamPool  # noqa: E402
 from h263_tpu_torch.parser import automaton_cuda  # noqa: E402
 from h263_tpu_torch.parser import device_frontend as tdf  # noqa: E402
-from h263_tpu_torch.testing.corpora import rich_gop  # noqa: E402
+from h263_tpu_torch.testing.corpora import d24_rows, rich_gop  # noqa: E402
 from h263_tpu_torch.types import H263Error  # noqa: E402
 
 
@@ -454,3 +457,74 @@ def test_automaton_launches_at_every_lane_count(cuda, S):
     idx = torch.arange(S, device=cuda) % n
     for a, b in zip(big, small):
         assert torch.equal(a, b.index_select(0, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(32, 48), (144, 176), (145, 177),
+                                  (288, 352)])
+@pytest.mark.parametrize("mv_full", [None, False, True])
+def test_d24_kernel_matches_plain(cuda, size, mv_full):
+    """Hand-made rows (entries at cursor -1, collisions, escapes, a tail
+    past the last coefficient), alone (the flip step) or fused behind MVs
+    and INTER bits; rows contiguous and rows lying apart (a strided view,
+    as the flip step's entries inside the fused rows)."""
+    h, w = size
+    mbh, mbw = -(-h // 16), -(-w // 16)
+    rng = np.random.default_rng(h * 7 + w + (mv_full is None) + 2 * bool(
+        mv_full))
+    rows = torch.as_tensor(d24_rows(rng, 7, 700, mbh, mbw, mv_full))
+    wide = torch.zeros((7, rows.shape[1] + 13), dtype=torch.uint8)
+    wide[:, 5:5 + rows.shape[1]] = rows
+    for r in (rows.to(cuda), wide.to(cuda)[:, 5:5 + rows.shape[1]]):
+        before = d24_cuda.launches
+        if mv_full is None:
+            got = (d24_cuda.d24_to_dense_cuda(r, mbh, mbw),)
+            want = (d24_to_dense(rows, mbh, mbw),)
+        else:
+            got = d24_cuda.unpack_fused_cuda(r, mbh, mbw, mv_full)
+            want = unpack_fused(rows, mbh, mbw, mv_full)
+        assert d24_cuda.launches == before + 1
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    assert (want[0] != 0).any()
+
+
+@pytest.mark.gpu
+def test_cuda_batched_decoder_matches_cpu_decoder(cuda):
+    """The host front-end on the card and on the CPU: planes, RGBA, the
+    flip (4V frames), a PackOverflow step (small pack_cap), masks."""
+    S, w, h = 4, 48, 32
+    streams = [rich_gop(1400 + i, n=5) for i in range(S)]
+    decs = [BatchedStreamDecoder(S, w, h, pack_cap=64, device=d)
+            for d in ("cuda", "cpu")]
+    before = d24_cuda.launches
+    for t in range(5):
+        bufs = [s[t] for s in streams]
+        mask = [True, t != 2, True, True]
+        outs = [d.decode_step(bufs, mask=mask) for d in decs]
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    assert d24_cuda.launches > before
+    np.testing.assert_array_equal(
+        decs[0].present_rgba().cpu().numpy(), decs[1].present_rgba().numpy())
+
+
+@pytest.mark.gpu
+def test_batched_pipeline_makes_no_synchronising_call(cuda):
+    S = 4
+    streams = [rich_gop(1500 + i, n=5) for i in range(S)]
+    lists = [[s[t] for s in streams] for t in range(5)]
+    seq = BatchedStreamDecoder(S, 48, 32)
+    want = [tuple(p.clone() for p in seq.decode_step(b)) for b in lists]
+    dec = BatchedStreamDecoder(S, 48, 32)
+    dec.decode_step(lists[0])              # tables and kernels loaded
+    dec = BatchedStreamDecoder(S, 48, 32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tuple(p.clone() for p in out)
+               for out in dec.decode_stream_pipelined(iter(lists))]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))

@@ -1,5 +1,6 @@
 """The port's serving pool (`StreamPool(device="cpu")`) against the JAX
-package's `StreamPool(frontend="device")`, step for step.
+package's `StreamPool`, step for step, with the device front-end and with
+the host front-end (`frontend=` named on both sides).
 
 Both pools see the same membership calls and frames.  After every step the
 two must agree on the error raised (by class), on every decoded stream's
@@ -8,8 +9,11 @@ presentation state, and on `present_rgba` under each deblock setting.  The
 cases are those of tests/test_pool.py: join, leave and slot recycling,
 bucket growth, absent streams, rebucketing on an I-frame, refusal on a
 P-frame, at an unbounded size and on a garbage body, error isolation across
-buckets, unregistered ids.  Small dims (48x32 and 64x48) and few bucket
-sizes keep the JAX side's compiles few; `unroll=1` only shortens them.
+buckets, unregistered ids; for host pools also the per-stream header state
+and `decode_steps` as sequential steps; and rebucket I-frames fuzzed (cut,
+byte-flipped) through both front-ends.  Small dims (48x32 and 64x48) and
+few bucket sizes keep the JAX side's compiles few; `unroll=1` only shortens
+them.
 """
 
 import numpy as np
@@ -68,13 +72,29 @@ def _np(a):
     return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+def _picture_fields(pic):
+    """A Picture of either package as plain values."""
+    if pic is None:
+        return None
+    out = {}
+    for name, v in vars(pic).items():
+        if hasattr(v, "width_and_height"):
+            v = v.width_and_height()
+        elif hasattr(v, "value"):
+            v = v.value
+        out[name] = v
+    return out
+
+
 class Twin:
     """The JAX pool and the port's pool driven alike and compared."""
 
-    def __init__(self, **kw):
+    def __init__(self, frontend="device", **kw):
+        extra = {"unroll": 1} if frontend == "device" else {}
+        self.frontend = frontend
         self.j = JaxPool(JaxOption.SORENSON_SPARK_BITSTREAM,
-                         frontend="device", unroll=1, **kw)
-        self.t = StreamPool(device="cpu", **kw)
+                         frontend=frontend, **extra, **kw)
+        self.t = StreamPool(frontend=frontend, device="cpu", **kw)
 
     def add(self, sid, dims):
         self.j.add_stream(sid, *dims)
@@ -117,6 +137,15 @@ class Twin:
                 np.testing.assert_array_equal(
                     _np(getattr(tb.dec, name)), _np(getattr(jb.dec, name)),
                     err_msg=f"{key} {name}")
+            if self.frontend == "host":
+                assert tb.dec._mv_full == jb.dec._mv_full
+                for i, (a, b) in enumerate(zip(tb.dec.states,
+                                               jb.dec.states)):
+                    assert (int(a.running_options), a.has_reference,
+                            _picture_fields(a.last_header)) == (
+                        int(b.running_options), b.has_reference,
+                        _picture_fields(b.last_header)), (key, i)
+                continue
             np.testing.assert_array_equal(tb.dec._last_quant,
                                           jb.dec._last_quant)
             np.testing.assert_array_equal(tb.dec._last_deblock,
@@ -136,8 +165,8 @@ class Twin:
                                               err_msg=f"{sid} {deblock}")
 
 
-def test_join_leave_recycle_and_growth():
-    tw = Twin()
+def test_join_leave_recycle_and_growth(frontend="device"):
+    tw = Twin(frontend)
     f = {sid: gop(seed, A, n=5) for seed, sid in enumerate("abcd")}
     x, y = gop(9, B, n=5), gop(10, B, n=5)
     for sid in "ab":
@@ -161,8 +190,8 @@ def test_join_leave_recycle_and_growth():
     tw.present()
 
 
-def test_absent_stream_keeps_state():
-    tw = Twin()
+def test_absent_stream_keeps_state(frontend="device"):
+    tw = Twin(frontend)
     fa, fb = gop(21, A, n=4), gop(22, A, n=4)
     tw.add("a", A)
     tw.add("b", A)
@@ -175,8 +204,8 @@ def test_absent_stream_keeps_state():
     tw.present()
 
 
-def test_rebucket_on_an_iframe_and_before_the_first_step():
-    tw = Twin()
+def test_rebucket_on_an_iframe_and_before_the_first_step(frontend="device"):
+    tw = Twin(frontend)
     xa, xb = gop(31, A, n=2), gop(32, B, n=3)
     ka, pa = gop(34, A, n=5), gop(35, A, n=2)
     o, q = gop(33, B, n=5), gop(36, B, n=2)
@@ -202,10 +231,10 @@ def test_rebucket_on_an_iframe_and_before_the_first_step():
     tw.present()
 
 
-def test_rebucket_refused_keeps_state():
+def test_rebucket_refused_keeps_state(frontend="device"):
     """On a P-frame, at a size beyond max_dims and on a garbage body, the
     rebucket raises PictureFormatInvalid before the stream's state moves."""
-    tw = Twin(max_dims=(64, 64))
+    tw = Twin(frontend, max_dims=(64, 64))
     a, b, c = gop(41, A, n=4), gop(42, B, n=2), gop(43, A, n=4)
     tw.add("s", A)
     tw.add("t", A)
@@ -228,8 +257,8 @@ def test_rebucket_refused_keeps_state():
     tw.present()
 
 
-def test_error_in_one_bucket_does_not_skip_the_others():
-    tw = Twin()
+def test_error_in_one_bucket_does_not_skip_the_others(frontend="device"):
+    tw = Twin(frontend)
     a, a2 = gop(51, A, n=3), gop(54, A, n=3)
     b, c = gop(52, B, n=3), gop(53, B, n=3)
     tw.add("a", A)
@@ -258,7 +287,9 @@ def test_unregistered_ids_raise():
 
 def test_pool_options():
     with pytest.raises(ValueError):
-        StreamPool(frontend="host", device="cpu")
+        StreamPool(frontend="automaton", device="cpu")
+    assert StreamPool(device="cpu").frontend == "device"
+    assert StreamPool(frontend="host", device="cpu").frontend == "host"
     with pytest.raises(ValueError):
         StreamPool(DecoderOption.NONE, device="cpu")
     if not torch.cuda.is_available():
@@ -294,11 +325,112 @@ def _validation_cases():
 
 @pytest.mark.parametrize("k", range(14))
 def test_rebucket_validation_agrees_with_the_host_parser(k):
-    """The port validates a rebucket frame with its native prep and plain
-    automaton; the JAX package with its host parser.  They agree."""
+    """The port validates a rebucket frame with its copies of the JAX
+    package's host parsers, as the JAX pool does: they agree."""
     buf = _validation_cases()[k]
     dims = A if k == 4 else B
     jp = JaxPool(JaxOption.SORENSON_SPARK_BITSTREAM, frontend="device")
     tp = StreamPool(device="cpu")
     assert tp._validate_rebucket_frame(buf, *dims) == \
         jp._validate_rebucket_frame(buf, *dims)
+
+
+def test_rebucket_validation_refuses_only_decode_errors(monkeypatch):
+    """A decode error refuses the frame; any other fault of the parse (a
+    failed native build, a bug) propagates instead of becoming a refusal."""
+    import h263_tpu_torch.parallel.pool as pool_mod
+
+    i_frame = gop(61, B, n=1)[0]
+    tp = StreamPool(device="cpu")
+    assert tp._validate_rebucket_frame(i_frame, *B)
+    assert not tp._validate_rebucket_frame(i_frame[:9], *B)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("native library build failed")
+    monkeypatch.setattr(pool_mod, "parse_frame_auto", broken)
+    with pytest.raises(RuntimeError, match="build failed"):
+        tp._validate_rebucket_frame(i_frame, *B)
+
+
+# -- host front-end pools ------------------------------------------------------
+
+def test_host_pool_join_leave_recycle_and_growth():
+    test_join_leave_recycle_and_growth("host")
+
+
+def test_host_pool_absent_stream_keeps_state():
+    test_absent_stream_keeps_state("host")
+
+
+def test_host_pool_rebucket_on_an_iframe():
+    test_rebucket_on_an_iframe_and_before_the_first_step("host")
+
+
+def test_host_pool_rebucket_refused_keeps_state():
+    test_rebucket_refused_keeps_state("host")
+
+
+def test_host_pool_error_in_one_bucket_commits_nothing():
+    """A corrupt frame makes its host bucket raise with nothing committed
+    and no plane changed, while the other bucket steps."""
+    test_error_in_one_bucket_does_not_skip_the_others("host")
+
+
+def test_host_pool_decode_steps_are_sequential_steps():
+    tw = Twin("host")
+    fa, fb, fx = gop(71, A, n=4), gop(72, A, n=4), gop(73, B, n=4)
+    for sid, dims in (("a", A), ("b", A), ("x", B)):
+        tw.add(sid, dims)
+    seq = StreamPool(frontend="host", device="cpu")
+    for sid, dims in (("a", A), ("b", A), ("x", B)):
+        seq.add_stream(sid, *dims)
+    window = [{"a": fa[t], "b": fb[t], "x": fx[t]} for t in range(4)]
+    del window[2]["b"]                      # b sits out a frame
+    outs = [tw.j.decode_steps(window), tw.t.decode_steps(window)]
+    tw.check_state()
+    for t, feed in enumerate(window):
+        step = seq.decode_step(feed)
+        for sid in feed:
+            for a, b, c in zip(outs[0][t][sid], outs[1][t][sid], step[sid]):
+                np.testing.assert_array_equal(b, a, err_msg=f"{t} {sid}")
+                np.testing.assert_array_equal(b, c, err_msg=f"{t} {sid}")
+    tw.present()
+
+
+def _fuzzed_rebucket_frames(seed, n):
+    """I-frames at B's dims: clean, cut at random bytes, byte-flipped."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        f = gop(seed * 100 + k, B, n=1)[0]
+        kind = k % 3
+        if kind == 1:
+            f = f[:int(rng.integers(6, len(f)))]
+        elif kind == 2:
+            b = bytearray(f)
+            b[int(rng.integers(8, len(b)))] ^= int(rng.integers(1, 256))
+            f = bytes(b)
+        out.append(f)
+    return out
+
+
+@pytest.mark.parametrize("frontend", ["device", "host"])
+def test_fuzzed_rebucket_frames_decide_alike(frontend):
+    """A stream offered fuzzed rebucket I-frames: the port's pool and the
+    JAX pool accept or refuse each alike and hold equal planes after; an
+    accepted stream goes back to its first size on a clean I-frame."""
+    tw = Twin(frontend)
+    home = gop(81, A, n=2)
+    other = gop(82, A, n=12)
+    tw.add("s", A)
+    tw.add("o", A)
+    tw.step({"s": home[0], "o": other[0]})
+    moved = 0
+    for k, f in enumerate(_fuzzed_rebucket_frames(83, 10)):
+        tw.step({"s": f, "o": other[1 + k]})
+        if tw.t._dims["s"] == B:
+            moved += 1
+            tw.step({"s": gop(84 + k, A, n=1)[0]})
+            assert tw.t._dims["s"] == A
+    assert 3 <= moved < 10              # accepted and refused frames both
+    tw.present()

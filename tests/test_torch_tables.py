@@ -65,10 +65,13 @@ def test_enums_equal(name):
 
 
 def test_integer_constants_equal():
-    names = [n for n, v in vars(t_types).items()
-             if n.isupper() and isinstance(v, int)]
-    assert len(names) == 9
-    for n in names:
+    def names(mod):
+        return sorted(n for n, v in vars(mod).items()
+                      if n.isupper() and isinstance(v, int))
+
+    assert names(t_types) == names(j_types)
+    assert len(names(t_types)) == 11
+    for n in names(t_types):
         assert getattr(t_types, n) == getattr(j_types, n), n
 
 
