@@ -80,7 +80,32 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      stage timers, peak memory; then phase 8's traffic through
      StreamPool(frontend="host"), digests every frame.
 
-The kernels line's launch counts are those of phases 8-11 (each run with
+  12. standard H.263 (DecoderOption.NONE) at S=1024 CIF: (a)
+     DeviceFrontendDecoder(1024, 352, 288, DecoderOption.NONE) over an
+     8-frame GOP of 16 standard corpora, u0 lanes (a PLUSPTYPE I-picture
+     whose UMV the plain-PTYPE P-frames carry), MQ lanes (a PLUSPTYPE
+     MODIFIED_QUANTIZATION I-picture: UNIMPLEMENTED, then identity frames)
+     and one lane in eight cut or byte-flipped in every P-frame: every
+     step's automaton outputs (dense, MVs, INTER, status) equal its plain
+     version on every lane, sampled lanes equal the reference digests
+     (planes every frame, RGBA); (b) BatchedStreamDecoder(1024, 352, 288,
+     DecoderOption.NONE) on the same bytes: each step with a failed lane
+     raises the automaton's error class with nothing committed, then with
+     the failed lanes masked every frame's planes and RGBA equal the device
+     front-end's, the PLUSPTYPE steps replay through the Python headers
+     (counted), the unpack kernel equals d24_to_dense on every step's rows;
+     the standard automaton on clean P-frames against the Sorenson lanes'
+     in this run, a step's split by the stage timers and kernel events for
+     both front-ends, back-to-back frames/s, peak memory; (c)
+     StreamPool(DecoderOption.NONE) on each front-end with 1024 CIF + 64
+     QCIF standard streams: churn, an absent stream, a joiner moving CIF ->
+     QCIF on a plain-PTYPE I-frame (the probe says "changed"), a u0
+     stream's QCIF I-frame refused (the reference's format-change rule), a
+     P-frame rebucket refused, digests every frame; (d) a Sorenson host pool
+     on phase 8's streams switched to the device front-end after step 3,
+     digests every frame, and the H2D readings its rate trigger reads.
+
+The kernels line's launch counts are those of phases 8-12 (each run with
 the counts set to 0 just before it).
 
 The oracle is `h263_tpu_torch/testdata/reference_digests.json`: SHA-256
@@ -1902,6 +1927,617 @@ def phase_host(torch, streams, golden, digests):
     return record, launches
 
 
+# -- phase 12: standard H.263 -------------------------------------------------
+
+N_STD = 16                # standard CIF corpora s{k}
+N_UMV_LANES = 8           # lanes 0-7: u0 (UMV carried by plain-PTYPE P-frames)
+N_MQ_LANES = 4            # lanes 8-11: a MODIFIED_QUANTIZATION I-picture
+
+
+def std_lanes(streams, mq):
+    """Phase 12's lanes: lane -> frames of its 8-frame GOP, and which lanes
+    are damaged.  Lanes 0-7 carry u0; lanes 8-11 an MQ I-picture, then
+    s0's P-frames (coded, so they fail under the carried MQ too); every
+    other lane s{(i // 8) % 16}, and of those, lane i % 8 == 5 is cut and
+    i % 8 == 6 byte-flipped after its header in every P-frame (seeded per
+    i % 64 and frame), so the GOB scan runs.  I-frames stay whole: the host
+    front-end refuses INTER blocks without a reference, the device one does
+    not."""
+    lanes, damaged = [], set()
+    for i in range(S_MAIN):
+        if i < N_UMV_LANES:
+            lanes.append(list(streams["u0"][2]))
+            continue
+        if i < N_UMV_LANES + N_MQ_LANES:
+            lanes.append([mq] + list(streams["s0"][2][1:]))
+            continue
+        frames = list(streams[f"s{(i // 8) % N_STD}"][2])
+        kind = i % 8
+        if kind in (5, 6):
+            damaged.add(i)
+            for t in range(1, GOP):
+                rng = np.random.default_rng(1000 * (i % 64) + t)
+                f = frames[t]
+                if kind == 5:
+                    f = f[:int(rng.integers(8, len(f)))]
+                else:
+                    b = bytearray(f)
+                    b[int(rng.integers(8, len(b)))] ^= int(
+                        rng.integers(1, 256))
+                    f = bytes(b)
+                frames[t] = f
+        lanes.append(frames)
+    return lanes, damaged
+
+
+class AutomatonRecorder:
+    """Stands in for `device_batch.parse_assemble_cuda` while installed:
+    passes every call on and keeps each call's payload, meta and outputs,
+    for holding the kernel against its plain version afterwards."""
+
+    def __init__(self):
+        from h263_tpu_torch.parallel import device_batch
+
+        self.mod, self.fn, self.calls = device_batch, \
+            device_batch.parse_assemble_cuda, []
+
+    def __enter__(self):
+        self.mod.parse_assemble_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.parse_assemble_cuda = self.fn
+
+    def __call__(self, payload, meta, **kw):
+        out = self.fn(payload, meta, **kw)
+        self.calls.append((payload, meta, out))
+        return out
+
+
+def hold_automaton_calls(torch, calls):
+    """The kernel's outputs of every recorded call against the plain version
+    on the same lanes: the distinct lanes of all calls (payload words and
+    meta rows 0-4) go through ONE plain call (its time is the longest
+    lane's chain, whatever the lane count), and each call's dense
+    coefficients, MVs, flags and statuses must equal the plain ones lane
+    for lane.  Returns (max |error|, distinct lanes, plain ms)."""
+    from h263_tpu_torch.parser.device_frontend import parse_assemble
+
+    index, words, metas, maps = {}, [], [], []
+    woff = 0
+    for payload, meta, _ in calls:
+        flat = payload.cpu().numpy().reshape(-1)
+        m = meta.cpu().numpy()
+        lane_idx = np.empty(m.shape[1], dtype=np.int64)
+        for i in range(m.shape[1]):
+            off, nw = int(m[5, i]), (int(m[1, i]) + 31) // 32
+            key = (flat[4 * off:4 * (off + nw)].tobytes(),
+                   tuple(int(v) for v in m[:5, i]))
+            j = index.get(key)
+            if j is None:
+                j = index[key] = len(metas)
+                words.append(key[0] + b"\0" * (4 * nw - len(key[0])))
+                metas.append(list(key[1]) + [woff])
+                woff += nw
+            lane_idx[i] = j
+        maps.append(lane_idx)
+    payload = np.frombuffer(bytearray(b"".join(words) + b"\0" * 4),
+                            dtype=np.uint8)
+    meta = np.ascontiguousarray(np.asarray(metas, dtype=np.int32).T)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = parse_assemble(
+        torch.as_tensor(payload.reshape(-1, 4)).to(DEVICE),
+        torch.as_tensor(meta).to(DEVICE), mbh=H // 16, mbw=W // 16, width=W,
+        height=H)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0
+    for (_, _, got), lane_idx in zip(calls, maps):
+        idx = torch.as_tensor(lane_idx, device=DEVICE)
+        for name, a, b in zip(("dense", "mvs", "inter", "status"), got,
+                              want):
+            e = max_err(torch, a, b.index_select(0, idx))
+            err = max(err, e)
+            if e:
+                fail(f"standard lanes: the automaton kernel's {name} differs "
+                     f"from its plain version (max |error| {e})")
+    return err, len(metas), plain_ms
+
+
+def split_std_step(torch, dec, bufs, tag, n=3):
+    """Where a standard step's time goes: the stage timers of utils/trace
+    (host clock: host_parse, transfer, reconstruct_dispatch, reclaim_wait)
+    and CUDA events around the kernels the step launches (the automaton, or
+    the unpack, and the reconstruction), with the wall time around it."""
+    from h263_tpu_torch.decoder import reconstruct as rec
+    from h263_tpu_torch.parallel import device_batch
+    from h263_tpu_torch.utils import trace
+
+    spans = []
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            spans.append((fn.__name__, a, b))
+            return out
+        return call
+
+    saved = (device_batch.parse_assemble_cuda,
+             device_batch.reconstruct_from_dense, rec.d24_to_dense_cuda,
+             rec.reconstruct_from_dense)
+    device_batch.parse_assemble_cuda = timed(saved[0])
+    device_batch.reconstruct_from_dense = timed(saved[1])
+    rec.d24_to_dense_cuda = timed(saved[2])
+    rec.reconstruct_from_dense = timed(saved[3])
+    rows = []
+    try:
+        for _ in range(n):
+            spans.clear()
+            trace.reset_metrics()
+            trace.trace_enabled(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.decode_step(bufs)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            trace.trace_enabled(False)
+            stages = {k: round(v["total_s"] * 1e3, 3)
+                      for k, v in trace.get_metrics().items()}
+            kern = {name: round(a.elapsed_time(b), 3)
+                    for name, a, b in spans}
+            rows.append((wall, stages, kern))
+            log(f"standard split: {tag} {wall:.2f} ms wall; stage timers ms "
+                f"{stages}; kernels (CUDA events, wrapper included) ms "
+                f"{kern}")
+    finally:
+        trace.trace_enabled(False)
+        (device_batch.parse_assemble_cuda,
+         device_batch.reconstruct_from_dense, rec.d24_to_dense_cuda,
+         rec.reconstruct_from_dense) = saved
+    return rows
+
+
+def phase_standard(torch, streams, digests):
+    """Phase 12 (a) and (b): standard H.263 at S=1024 CIF through
+    DeviceFrontendDecoder and BatchedStreamDecoder with DecoderOption.NONE.
+    Returns the launches of their two GOPs (the main paths)."""
+    from h263_tpu_torch import BatchedStreamDecoder, DeviceFrontendDecoder
+    from h263_tpu_torch.parser import automaton_cuda
+    from h263_tpu_torch.parser.tables import (
+        ST_UNIMPLEMENTED,
+        status_error_class,
+    )
+    from h263_tpu_torch.testing.corpora import (
+        mq_picture,
+        planes_digest,
+        rgba_digest,
+    )
+    from h263_tpu_torch.types import DecoderOption, H263Error
+    from h263_tpu_torch.utils import trace
+
+    NONE = DecoderOption.NONE
+    lanes, damaged = std_lanes(streams, mq_picture(W, H))
+    mq_lanes = set(range(N_UMV_LANES, N_UMV_LANES + N_MQ_LANES))
+    lane_name = (["u0"] * N_UMV_LANES + ["mq"] * N_MQ_LANES
+                 + [f"s{(i // 8) % N_STD}" for i in range(12, S_MAIN)])
+    # u0, an undamaged lane of every s{k} (lane 8m carries s{m % 16}), the
+    # last lane.
+    sampled = [0, *(8 * m for m in range(2, 2 + N_STD)), S_MAIN - 1]
+    idx = torch.tensor(sampled, device=DEVICE)
+    lists = [[lanes[i][t] for i in range(S_MAIN)] for t in range(GOP)]
+    launches = {}
+
+    # (a) The device front-end, counted; every call's automaton recorded.
+    dec = DeviceFrontendDecoder(S_MAIN, W, H, NONE, device=DEVICE)
+    planes, statuses, step_s = [], [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    with AutomatonRecorder() as rec_calls:
+        for t, bufs in enumerate(lists):
+            t0 = time.perf_counter()
+            out = dec.decode_step(bufs)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            planes.append(tuple(p.clone() for p in out))
+            statuses.append(dec.fetch_status().copy())
+        rgba_dev = dec.present_rgba(deblock=True)
+        rgba_dev_none = dec.present_rgba()
+        torch.cuda.synchronize()
+    launches["device"] = read_launches()
+    for t in range(GOP):
+        kept = [p.index_select(0, idx).cpu().numpy() for p in planes[t]]
+        for j, lane in enumerate(sampled):
+            if planes_digest(*(k[j] for k in kept)) != \
+                    digests[lane_name[lane]]["planes"][t]:
+                fail(f"standard device path: lane {lane} ({lane_name[lane]})"
+                     f" frame {t} differs from the reference digest")
+        st = statuses[t]
+        bad = sorted(set(np.flatnonzero(st)) - damaged - mq_lanes)
+        if bad:
+            fail(f"standard device path: frame {t}: undamaged lanes {bad[:8]}"
+                 f" errored (statuses {st[bad[:8]].tolist()})")
+        if t and not (st[sorted(damaged)] != 0).any():
+            fail(f"frame {t}: no damaged lane errored")
+        if not (st[sorted(mq_lanes)] == ST_UNIMPLEMENTED).all():
+            fail(f"frame {t}: the MQ lanes' statuses are "
+                 f"{st[sorted(mq_lanes)].tolist()}, not UNIMPLEMENTED")
+    mq_idx = torch.tensor(sorted(mq_lanes), device=DEVICE)
+    if any(int(p.index_select(0, mq_idx).max()) for p in planes[-1]):
+        fail("the MQ lanes did not keep the identity frame of their zero "
+             "planes")
+    rgba_s = rgba_dev.index_select(0, idx).cpu().numpy()
+    for j, lane in enumerate(sampled):
+        if rgba_digest(rgba_s[j]) != digests[lane_name[lane]]["rgba"][-1]:
+            fail(f"standard device path: lane {lane} RGBA differs from the "
+                 f"reference digest")
+    if (launches["device"]["entropy_automaton"] != GOP
+            or launches["device"]["reconstruct"] != GOP
+            or launches["device"]["present_rgba"] != 2):
+        fail(f"the standard device path must launch the automaton and the "
+             f"reconstruction once a step: {launches['device']}")
+    err, n_distinct, plain_ms = hold_automaton_calls(torch, rec_calls.calls)
+    n_err = [int((s != 0).sum()) for s in statuses]
+    log(f"standard device path: DeviceFrontendDecoder({S_MAIN}, {W}, {H}, "
+        f"DecoderOption.NONE) x {GOP} frames: lanes 0-7 u0 (UMV carried), "
+        f"8-11 an MQ I-picture (UNIMPLEMENTED every frame, identity planes), "
+        f"{len(damaged)} lanes cut or flipped in every P-frame; errored lanes"
+        f" per frame {n_err}; the automaton kernel equals its plain version "
+        f"on every lane of every step (dense, MVs, INTER, status; "
+        f"max_abs_err={err}; {n_distinct} distinct lanes in one plain call of"
+        f" {plain_ms:.0f} ms); {len(sampled)} sampled lanes equal the "
+        f"reference digests every frame and in RGBA; launches "
+        f"{launches['device']}; step ms {[round(s * 1e3, 2) for s in step_s]}")
+    del rec_calls
+
+    # (b) The host front-end on the same bytes.  Per step: first every lane
+    # (MQ lanes masked: the native host parser does not refuse an MQ
+    # picture, as in the JAX package), which must raise the error class of
+    # the lowest lane the automaton failed, with nothing committed; then
+    # the lanes the automaton decoded, the others masked (the skip frame,
+    # the identity, as the automaton's failed lanes), equal to the device
+    # front-end's planes.
+    hdec = BatchedStreamDecoder(S_MAIN, W, H, NONE, device=DEVICE)
+    probe = D24Probe(torch)
+    before = trace.get_counters().get("std_python_header_replays", 0)
+    classes, rates = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    with probe:
+        for t, bufs in enumerate(lists):
+            live = np.array([i not in mq_lanes for i in range(S_MAIN)])
+            ok = live & (statuses[t] == 0)
+            fails = np.flatnonzero(live & ~ok)
+            if fails.size:
+                try:
+                    hdec.decode_step(bufs, mask=live)
+                    got = None
+                except H263Error as e:
+                    got = type(e).__name__
+                want = status_error_class(int(statuses[t][fails[0]])).__name__
+                classes.append(got)
+                if got != want:
+                    fail(f"standard host path: frame {t} raised {got}, the "
+                         f"automaton's lowest failed lane gives {want}")
+            out = hdec.decode_step(bufs, mask=ok)
+            if not all(torch.equal(a, b) for a, b in zip(out, planes[t])):
+                fail(f"standard host path: frame {t} differs from the device "
+                     f"front-end's planes")
+            rates.append((hdec.last_transfer_bytes, hdec.last_transfer_s))
+        rgba_host = hdec.present_rgba(deblock=True)
+        rgba_host_none = hdec.present_rgba()
+        torch.cuda.synchronize()
+    launches["host"] = read_launches()
+    replays = trace.get_counters().get("std_python_header_replays", 0) - before
+    if not (torch.equal(rgba_host, rgba_dev)
+            and torch.equal(rgba_host_none, rgba_dev_none)):
+        fail("standard host path: present_rgba differs from the device "
+             "front-end's")
+    if (launches["host"]["d24_unpack"] != GOP
+            or launches["host"]["reconstruct"] != GOP
+            or launches["host"]["entropy_automaton"] != 0
+            or probe.calls["entries"] != GOP or replays < 1):
+        fail(f"the standard host path must unpack and reconstruct once a "
+             f"step with no automaton, and replay its PLUSPTYPE step in "
+             f"Python: launches {launches['host']}, unpack checks "
+             f"{probe.calls}, replays {replays}")
+    log(f"standard host path: BatchedStreamDecoder({S_MAIN}, {W}, {H}, "
+        f"DecoderOption.NONE) on the same bytes: every frame's planes and "
+        f"present_rgba (deblocked and not) equal the device front-end's; "
+        f"the unmasked steps raised {classes} (the automaton's lowest failed"
+        f" lane's class each time); steps replayed through the Python "
+        f"headers (NeedsPythonHeader): {replays}; the unpack kernel exact "
+        f"against d24_to_dense on every step's rows {probe.calls}; launches "
+        f"{launches['host']}; H2D readings of the masked steps (bytes, s; "
+        f"CUDA events, read one step late) {rates}")
+    del planes, rgba_dev, rgba_host, rgba_dev_none, rgba_host_none
+
+    # Readings on clean lanes (u0 and s{k}, no MQ, no damage).
+    clean = [[streams["u0"][2][t] if i < N_UMV_LANES else
+              streams[f"s{(i // 8) % N_STD}"][2][t] for i in range(S_MAIN)]
+             for t in range(GOP)]
+    ddec = DeviceFrontendDecoder(S_MAIN, W, H, NONE, device=DEVICE)
+    with AutomatonRecorder() as rec_calls:
+        for bufs in clean:
+            ddec.decode_step(bufs)
+    std_p = rec_calls.calls[-1][:2]
+    sor_p = automaton_inputs(
+        torch, [streams[f"c{i % N_CORPORA}"][2][GOP - 1]
+                for i in range(S_MAIN)])[:2]
+    kw = dict(mbh=H // 16, mbw=W // 16, width=W, height=H)
+    n = automaton_cuda.launches
+    t_std = [cuda_ms(lambda: automaton_cuda.parse_assemble_cuda(*std_p, **kw),
+                     10) for _ in range(2)]
+    t_sor = [cuda_ms(lambda: automaton_cuda.parse_assemble_cuda(*sor_p, **kw),
+                     10) for _ in range(2)]
+    steps_std = int(automaton_cuda._parse_assemble(
+        *std_p, H // 16, W // 16, W, H, (0, 0, 0))[4].max())
+    steps_sor = int(automaton_cuda._parse_assemble(
+        *sor_p, H // 16, W // 16, W, H, (0, 0, 0))[4].max())
+    automaton_cuda.launches = n
+    log(f"standard automaton: {S_MAIN} clean standard CIF P-frame lanes (u0 "
+        f"and s{{k}}, frame {GOP - 1}) {[round(x, 3) for x in t_std]} ms per "
+        f"call (longest lane {steps_std} steps), against {S_MAIN} Sorenson "
+        f"CIF P-frame lanes (c{{k}}, frame {GOP - 1}) "
+        f"{[round(x, 3) for x in t_sor]} ms ({steps_sor} steps), in this "
+        f"run: ratio {t_std[-1] / t_sor[-1]:.2f}")
+    del rec_calls, std_p, sor_p
+    split_std_step(torch, ddec, clean[GOP - 1], "device front-end P-step")
+    hclean = BatchedStreamDecoder(S_MAIN, W, H, NONE, device=DEVICE)
+    for bufs in clean:
+        hclean.decode_step(bufs)
+    split_std_step(torch, hclean, clean[GOP - 1], "host front-end P-step")
+    peaks = {}
+    for name, d in (("device", ddec), ("host", hclean)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        d.decode_step(clean[GOP - 1])
+        torch.cuda.synchronize()
+        peaks[name] = (round(torch.cuda.max_memory_allocated() / 2**30, 3),
+                       round((torch.cuda.max_memory_allocated() - held)
+                             / 2**30, 3))
+
+    def loop(d):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_LOOP // 2):
+            for bufs in clean:
+                d.decode_step(bufs)
+        torch.cuda.synchronize()
+        return round(N_LOOP // 2 * GOP * S_MAIN / (time.perf_counter() - t0),
+                     1)
+
+    b2b = {"device": [], "host": []}
+    for name in ("device", "host", "host", "device"):
+        b2b[name].append(loop(ddec if name == "device" else hclean))
+    log(f"standard back to back: {N_LOOP // 2} GOPs of {S_MAIN} clean CIF "
+        f"streams, one synchronise at the end, frames/s: device front-end "
+        f"{b2b['device']}, host front-end {b2b['host']}; peak device memory "
+        f"of a P-step (GiB; over what was held before it) {peaks}")
+    del ddec, hclean, dec, hdec
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_standard_pool(torch, streams, digests, frontend):
+    """Phase 12 (c): StreamPool(DecoderOption.NONE) with 1024 CIF and 64
+    QCIF standard streams on one front-end, with churn and absence; a
+    stream with no picture yet moves CIF -> QCIF on a plain-PTYPE I-frame
+    (the probe says "changed"); a u0 stream's QCIF I-frame is refused
+    (UnimplementedDecoding: the reference refuses any change of format
+    against a stream's last picture) and it keeps its state; a P-frame
+    rebucket is refused (PictureFormatInvalid).  Sampled streams equal
+    their digests every frame.  Returns the launches."""
+    from h263_tpu_torch.parallel.pool import (
+        StreamPool,
+        _sniff_standard_probe,
+    )
+    from h263_tpu_torch.testing.corpora import planes_digest, rgba_digest
+    from h263_tpu_torch.types import (
+        DecoderOption,
+        PictureFormatInvalid,
+        UnimplementedDecoding,
+    )
+
+    QC = (176, 144)
+    seq_of = {}
+    for i in range(S_MAIN):
+        seq_of[f"cif{i}"] = "u0" if i < 8 else f"s{i % N_STD}"
+    for j in range(S_QCIF):
+        seq_of[f"qcif{j}"] = "d0" if j % 2 else "sq0"
+    leavers = [f"cif{i}" for i in range(64, 64 + N_LEAVE)]
+    joiners = {f"join{k}": f"s{k % N_STD}" for k in range(N_LEAVE)}
+    absent, absent_t = "cif17", 2
+    # Joiners that decode no picture at CIF: the mover's first frame is a
+    # QCIF I-frame at step 5, the refused one's a QCIF P-frame at step 6.
+    mover, move_t = "join5", 5
+    refused, refuse_t = "join6", 6
+    umv_stream = "cif1"               # u0; a QCIF I-frame offered at step 6
+    sampled = ["cif0", "cif1", *(f"cif{i}" for i in range(16, 16 + N_STD)),
+               "cif17", f"cif{S_MAIN - 1}", "join0", "join1", mover,
+               "qcif0", "qcif1", "qcif2"]
+    tag = f"standard pool ({frontend})"
+    torch.cuda.synchronize()
+    reset_launches()
+    pool = StreamPool(DecoderOption.NONE, frontend=frontend, device=DEVICE)
+    for sid, name in seq_of.items():
+        pool.add_stream(sid, *streams[name][:2])
+    cursor = {sid: 0 for sid in seq_of}
+    pool_s, peaks, frames_done = [], [], 0
+    qcif_n0 = None
+    for t in range(GOP):
+        torch.cuda.reset_peak_memory_stats()
+        if t == 4:
+            for sid in leavers:
+                pool.remove_stream(sid)
+                del seq_of[sid], cursor[sid]
+            for sid, name in joiners.items():
+                pool.add_stream(sid, W, H)
+                seq_of[sid], cursor[sid] = name, 0
+        if t == move_t:
+            seq_of[mover], cursor[mover] = "sq0", 0
+            if _sniff_standard_probe(streams["sq0"][2][0], (W, H)) != \
+                    "changed":
+                fail("the probe did not report the CIF -> QCIF change")
+        if t == refuse_t:
+            for sid, buf, cls in (
+                    (umv_stream, streams["sq0"][2][0], UnimplementedDecoding),
+                    (refused, streams["sq0"][2][1], PictureFormatInvalid)):
+                try:
+                    pool.decode_step({sid: buf})
+                    fail(f"{tag}: {sid}'s QCIF frame was accepted")
+                except cls as e:
+                    log(f"{tag}: {sid}'s QCIF frame refused: "
+                        f"{type(e).__name__} ({e})")
+                if pool._dims[sid] != (W, H):
+                    fail(f"{tag}: the refused stream {sid} moved")
+        feed = {sid: streams[name][2][cursor[sid]]
+                for sid, name in seq_of.items()
+                if not (sid == absent and t == absent_t)
+                and not (sid == mover and t == 4) and sid != refused}
+        t0 = time.perf_counter()
+        out = pool.decode_step(feed)
+        torch.cuda.synchronize()
+        pool_s.append(time.perf_counter() - t0)
+        frames_done += len(feed)
+        if t == 0:
+            qcif_n0 = pool._buckets[QC].dec.n
+        if set(out) != set(feed):
+            fail(f"{tag}: frame {t}: results for {len(out)} streams, fed "
+                 f"{len(feed)}")
+        for sid in sampled:
+            if sid not in feed:
+                continue
+            name, k = seq_of[sid], cursor[sid]
+            if planes_digest(*out[sid]) != digests[name]["planes"][k]:
+                fail(f"{tag}: {sid} ({name} frame {k}) at step {t} differs "
+                     f"from the reference digest")
+        for sid in feed:
+            cursor[sid] += 1
+        rgba = pool.present_rgba(deblock=True)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        for sid in sampled:
+            if sid in seq_of and cursor[sid]:
+                name, k = seq_of[sid], cursor[sid] - 1
+                if rgba_digest(rgba[sid].cpu().numpy()) != \
+                        digests[name]["rgba"][k]:
+                    fail(f"{tag}: {sid} RGBA ({name} frame {k}) at step {t} "
+                         f"differs from the reference digest")
+    launches = read_launches()
+    qcif_n1 = pool._buckets[QC].dec.n
+    if pool._dims[mover] != QC or qcif_n1 <= qcif_n0:
+        fail(f"{tag}: the mover did not move to a grown QCIF bucket")
+    if frontend == "device" and launches["entropy_automaton"] < 2 * GOP:
+        fail(f"{tag}: a bucket step did not launch the automaton")
+    if frontend == "host" and (launches["d24_unpack"] < 2 * GOP
+                               or launches["entropy_automaton"]):
+        fail(f"{tag}: the host pool must unpack every bucket step and "
+             f"launch no automaton")
+    if min(launches["reconstruct"], launches["present_rgba"]) < 2 * GOP:
+        fail(f"{tag}: a bucket step or present launched no kernel")
+    log(f"{tag}: {frames_done} frames over {GOP} steps, "
+        f"{frames_done / sum(pool_s):.1f} frames/s (step ms "
+        f"{[round(s * 1e3, 2) for s in pool_s]}; the refusals' own calls "
+        f"not included); QCIF bucket {qcif_n0} -> {qcif_n1} slots; launches "
+        f"{launches}; peak device memory of a step with its present "
+        f"{max(peaks) / 2**30:.2f} GiB; {len(sampled)} sampled streams equal"
+        f" the reference digests every frame (planes and RGBA)")
+    del pool
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_switch(torch, streams, golden, digests):
+    """Phase 12 (d): a Sorenson StreamPool(frontend="host") on phase 8's
+    streams (no churn) switched to the device front-end after its step 3:
+    every frame before and after equals its digest, the host steps launch
+    the unpack and the device steps the automaton.  Prints the host steps'
+    H2D readings (CUDA events, read one step late) that the rate trigger
+    reads.  Returns the launches."""
+    from h263_tpu_torch.parallel.pool import StreamPool
+    from h263_tpu_torch.testing.corpora import planes_digest, rgba_digest
+    from h263_tpu_torch.utils.trace import get_counters
+
+    seq_of = {}
+    for i in range(S_MAIN):
+        seq_of[f"cif{i}"] = ("fixture" if i < 4 else "fma" if i < 8
+                             else f"c{i % N_CORPORA}")
+    for j in range(S_QCIF):
+        seq_of[f"qcif{j}"] = f"q{j % N_QCIF_CORPORA}"
+    sampled = ["cif0", "cif4", *(f"cif{i}" for i in range(8, 8 + N_CORPORA)),
+               f"cif{S_MAIN - 1}", "qcif0", "qcif1", "qcif2", "qcif3"]
+    torch.cuda.synchronize()
+    reset_launches()
+    pool = StreamPool(frontend="host", device=DEVICE)
+    for sid, name in seq_of.items():
+        pool.add_stream(sid, *streams[name][:2])
+    switches = get_counters().get("pool_frontend_switches", 0)
+    pool_s, readings, by_phase = [], [], {}
+    for t in range(GOP):
+        if t == 4:
+            by_phase["host"] = read_launches()
+            reset_launches()
+            t0 = time.perf_counter()
+            pool.switch_frontend("device")
+            torch.cuda.synchronize()
+            switch_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out = pool.decode_step({sid: streams[name][2][t]
+                                for sid, name in seq_of.items()})
+        torch.cuda.synchronize()
+        pool_s.append(time.perf_counter() - t0)
+        if t < 4:
+            readings.append([(b.dec.last_transfer_bytes,
+                              round(b.dec.last_transfer_s * 1e3, 3))
+                             for b in pool._buckets.values()])
+        for sid in sampled:
+            name = seq_of[sid]
+            y, cb, cr = out[sid]
+            if planes_digest(y, cb, cr) != digests[name]["planes"][t]:
+                fail(f"switched pool: {sid} ({name} frame {t}) at step {t} "
+                     f"differs from the reference digest")
+            if name == "fixture":
+                check_fixture_luma(y, golden[t], f"switched pool step {t}")
+        if t in (3, GOP - 1):     # the last host step, the last device step
+            rgba = pool.present_rgba(deblock=True)
+            for sid in sampled:
+                if rgba_digest(rgba[sid].cpu().numpy()) != \
+                        digests[seq_of[sid]]["rgba"][t]:
+                    fail(f"switched pool: {sid} RGBA at step {t} differs "
+                         f"from the reference digest")
+    by_phase["device"] = read_launches()
+    launches = {k: by_phase["host"][k] + by_phase["device"][k]
+                for k in by_phase["host"]}
+    if (pool.frontend != "device"
+            or get_counters()["pool_frontend_switches"] != switches + 2
+            or by_phase["host"]["d24_unpack"] != 2 * 4
+            or by_phase["host"]["entropy_automaton"]
+            or by_phase["device"]["entropy_automaton"] != 2 * 4
+            or by_phase["device"]["d24_unpack"]):
+        fail(f"switched pool: the switch did not move both buckets to the "
+             f"device front-end: launches {by_phase}")
+    rates = [[round(b / s / 1e9, 2) if s else None
+              for b, s in ((nb, ms / 1e3) for nb, ms in step)]
+             for step in readings]
+    log(f"switched pool: a Sorenson host pool of {S_MAIN} CIF + {S_QCIF} "
+        f"QCIF streams switched to the device front-end after step 3 in "
+        f"{switch_ms:.2f} ms; {len(sampled)} sampled streams equal the "
+        f"reference digests at every frame before and after (planes, and "
+        f"RGBA after steps 3 and {GOP - 1}); step ms "
+        f"{[round(s * 1e3, 2) for s in pool_s]}; launches by front-end "
+        f"{by_phase}; the host steps' H2D readings per bucket (bytes, ms) "
+        f"{readings}, GB/s {rates}")
+    del pool
+    torch.cuda.synchronize()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1932,6 +2568,10 @@ def main() -> int:
     streams["fixture"] = (W, H, C.fixture_frames(
         os.path.join(fix, "ffmpeg_flv1_cif.flv")))
     streams["fma"] = (W, H, C.fma_sequence(W, H, GOP))
+    streams.update({f"s{k}": (W, H, C.std_corpus(k)) for k in range(N_STD)})
+    streams["sq0"] = (176, 144, C.std_qcif_corpus())
+    streams["u0"] = (W, H, C.umv_corpus(W, H, GOP))
+    streams["d0"] = (176, 144, C.d3_corpus(176, 144, GOP))
     golden = np.load(os.path.join(fix, "ffmpeg_flv1_cif_golden.npz"))["luma"]
     if len(streams["fixture"][2]) != GOP:
         fail(f"CIF fixture has {len(streams['fixture'][2])} frames, expected "
@@ -1959,6 +2599,13 @@ def main() -> int:
     records.append(record)
     for more in (more, phase_pool(torch, streams, golden, digests,
                                   frontend="host")):
+        for k, n in more.items():
+            launches[k] += n
+    std = phase_standard(torch, streams, digests)
+    for more in (std["device"], std["host"],
+                 phase_standard_pool(torch, streams, digests, "device"),
+                 phase_standard_pool(torch, streams, digests, "host"),
+                 phase_switch(torch, streams, golden, digests)):
         for k, n in more.items():
             launches[k] += n
     for mod in ("jax", "h263_tpu"):

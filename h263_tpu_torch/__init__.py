@@ -11,14 +11,16 @@ deblock of the three planes + BT.601 RGBA), the unpack of the host
 front-end's fused transport, and the IDCT, the deblock and the RGBA
 conversion each on its own.
 
-Entry points, on the card unless the caller names `device="cpu"`:
-`StreamPool()`, the serving pool of Sorenson streams of mixed resolutions
-(`add_stream`, `remove_stream`, `decode_step({id: frame})`,
-`present_rgba()`), with the device entropy front-end by default or the
+Entry points, on the card unless the caller names `device="cpu"`, for
+Sorenson Spark streams (the default) or standard H.263 streams
+(`DecoderOption.NONE`): `StreamPool()`, the serving pool of streams of
+mixed resolutions (`add_stream`, `remove_stream`, `decode_step({id:
+frame})`, `present_rgba()`, and `switch_frontend("device")` for a
+Sorenson host pool), with the device entropy front-end by default or the
 host one (`frontend="host"`); `DeviceFrontendDecoder(n_streams, width,
 height)`, one lockstep bucket of the device front-end; and
 `BatchedStreamDecoder(n_streams, width, height)`, one bucket of the host
-front-end (the native entropy decoder on the host's cores, the fused
+front-end (the native entropy decoder on the host's cores, the delta24
 transport unpacked on the card by `csrc/d24.cu`).
 """
 

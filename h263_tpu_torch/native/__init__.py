@@ -61,6 +61,14 @@ SIGNATURES = {
                                          _P, _P, _P, _P, ctypes.c_int64,
                                          _I32, _P, _I32, _P, _I32, _P, _P,
                                          _P, _P],
+    # (buffers, lengths, n, w, h, xflags, has_reference, prev_running,
+    #  prev_fmt, hdr [n][10], mvs, mvs_slim, inter, pred_scratch, pack,
+    #  pack_val, pack_cap, counts, flags, failed stream)
+    "h263_standard_decode_batch": [_P, _P, _I32, _I32, _I32, _I32, _P, _P,
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _I32, _P,
+                                   _P, _P],
+    # (OPPTYPE mask out, MPPTYPE mask out)
+    "h263_option_masks": [_P, _P],
     "h263_abi_version": [],
 }
 ABI_VERSION = 6

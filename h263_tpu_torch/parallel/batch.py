@@ -1,7 +1,8 @@
 """Batched multi-stream decoding with the host entropy front-end, PyTorch.
 
-Port of `h263_tpu/parallel/batch.py::BatchedStreamDecoder` for Sorenson
-Spark streams.  Per step (`decode_step`):
+Port of `h263_tpu/parallel/batch.py::BatchedStreamDecoder`, for Sorenson
+Spark streams and (with `DecoderOption.NONE`) standard H.263.  Per
+Sorenson step (`decode_step`):
 
     one native call parses every stream's frame on the host's cores into a
     pinned staging row [int8 MVs | INTER bitmask | delta24 entries] ->
@@ -22,6 +23,18 @@ Spark streams.  Per step (`decode_step`):
   the native parse, before anything is committed; the step then replays
   on the dense transport (the Python header parse + the native dense parse
   per stream, header commits staged until every stream parsed).
+
+A standard step parses every stream's plain-PTYPE header and macroblocks
+in one native call (`StandardBatchParser`) into pinned rows of delta24
+entries [n, 3 * pack_cap] beside full int16 MVs and byte flags; the three
+ship whole, and the unpack kernel reads the rows up to the ladder's cut.
+A header outside that shape (PLUSPTYPE, PB frames, reserved formats)
+makes the call raise `NeedsPythonHeader` with nothing committed, and the
+step replays through the Python header parser (`_parse_header`) and the
+native packed parse per stream, committing only after every stream
+parsed.  `_std_prev_fmt` keeps each stream's last PTYPE format code (-1
+none, -2 after a header the native call does not parse), so the native
+call can apply the reference's format-change rule or hand the batch back.
 * A corrupt stream makes the step raise its error class with no header
   state committed and no plane changed, on either transport.
 * Masked slots decode the cached all-uncoded skip frame with the header
@@ -40,17 +53,20 @@ disposable-P quirk) follows the JAX package's `_StreamState`.  Counters
 (`frames_decoded`, `steps`, `steps_dense`, `steps_fused`,
 `steps_fused_flip`, `pack_overflow_fallbacks`, `transfer_bytes`) and stage
 timers (`host_parse`, `bucket_slice`, `transfer`, `reconstruct_dispatch`,
-`reclaim_wait`, `reclaim_fut_wait`) take the JAX package's names.
+`reclaim_wait`, `reclaim_fut_wait`) take the JAX package's names; the
+port adds `std_python_header_replays`, the standard steps replayed
+through the Python header parser.
 
-Left out against the JAX package: standard H.263 (a non-Sorenson
-`decoder_options` raises), the u32 and split transports and their parsers,
-the non-fused Sorenson batch parser, the `pallas=`, `coef_transport=` and
-reconstruct-function injection arguments, and the `H263_TPU_NO_*`
-switches.
+Left out against the JAX package: the u32 and split transports and their
+parsers, the standard path's slim MVs (its rows ship full MVs from the
+first step), the non-fused Sorenson batch parser, the `pallas=`,
+`coef_transport=` and reconstruct-function injection arguments, and the
+`H263_TPU_NO_*` switches.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import time
 from typing import Optional, Sequence
@@ -67,15 +83,22 @@ from ..decoder.reconstruct import (
     reconstruct_from_dense,
 )
 from ..native.bindings import (
+    NeedsPythonHeader,
     PackOverflow,
     SorensonFusedBatchParser,
+    StandardBatchParser,
     parse_frame_native,
+    parse_frame_native_packed,
 )
 from ..ops.d24 import fused_sections
 from ..ops.deblock import QUANT_TO_STRENGTH
 from ..parser.frame import FrameData, parse_frame_auto
 from ..parser.picture import decode_picture
-from ..testing.encoder import MBSpec, encode_sorenson_picture
+from ..testing.encoder import (
+    MBSpec,
+    encode_sorenson_picture,
+    encode_standard_picture,
+)
 from ..types import (
     MPPTYPE_OPTIONS,
     OPPTYPE_OPTIONS,
@@ -98,6 +121,13 @@ _PTYPES = (PictureTypeCode.I_FRAME, PictureTypeCode.P_FRAME,
            PictureTypeCode.DISPOSABLE_P_FRAME, PictureTypeCode.RESERVED)
 _FORMATS = {2: SourceFormatKind.FULL_CIF, 3: SourceFormatKind.QUARTER_CIF,
             4: SourceFormatKind.SUB_QCIF}
+# Plain-PTYPE source format codes (H.263 table 2) and their kinds.
+_STD_KIND_BY_BITS = {1: SourceFormatKind.SUB_QCIF,
+                     2: SourceFormatKind.QUARTER_CIF,
+                     3: SourceFormatKind.FULL_CIF,
+                     4: SourceFormatKind.FOUR_CIF,
+                     5: SourceFormatKind.SIXTEEN_CIF}
+_STD_FMT_BITS = {k: b for b, k in _STD_KIND_BY_BITS.items()}
 
 
 def _picture_from_fields(hdr) -> Picture:
@@ -161,9 +191,11 @@ class _HostBatch:
 
 
 class _PackedBatch:
-    """Pinned host buffers of one fused step: the staging rows the native
-    parse writes (`fused`, uint8 [n, row], allocated per MV row stride), and
-    the full int16 MVs and byte flags of the flip step."""
+    """Pinned host buffers of one packed step: the fused staging rows the
+    native Sorenson parse writes (`fused`, uint8 [n, row], allocated per MV
+    row stride) or a standard step's rows of delta24 entries (`rows`,
+    uint8 [n, 3 * pack_cap]), and the full int16 MVs and byte flags (of
+    the flip step, or of every standard step)."""
 
     def __init__(self, n, mb_w, mb_h, pin):
         self.pin = pin
@@ -177,12 +209,16 @@ class _PackedBatch:
         self.fused_mv_stride = 0  # 2 (slim) or 8 (full) int8 MV bytes/MB
         self.fused_parser = None
         self.cut = 0              # the native-chosen coefficient cut
+        self.rows_t = None        # a standard step's pinned delta24 rows
+        self.rows = None          # their numpy view
+        self.std_parser = None    # the StandardBatchParser bound to them
         self.copied = None        # event after the copies of the last step
         self.fut = None           # pipeline future of the consuming step
 
 
 class BatchedStreamDecoder:
-    """Decode n same-resolution Sorenson streams in lockstep, one frame per
+    """Decode n same-resolution streams, Sorenson or (with
+    `DecoderOption.NONE`) standard H.263, in lockstep, one frame per
     stream per `decode_step`, on `device` ("cuda", the default, or "cpu";
     no fallback between them)."""
 
@@ -195,18 +231,21 @@ class BatchedStreamDecoder:
                                "available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
-        if not decoder_options & DecoderOption.SORENSON_SPARK_BITSTREAM:
-            raise ValueError("the port's host front-end decodes Sorenson "
-                             "streams only")
         self.n = n_streams
         self.w, self.h = width, height
         self.cw, self.ch = (width + 1) // 2, (height + 1) // 2
         self.decoder_options = decoder_options
+        self._sorenson = bool(decoder_options
+                              & DecoderOption.SORENSON_SPARK_BITSTREAM)
         self.states = [_StreamState() for _ in range(n_streams)]
-        # The last step's host-to-device payload: bytes and the host time
-        # of enqueueing its copies.
+        # Each stream's last PTYPE format code for the native standard
+        # parse: -1 none, -2 a header it does not parse (punts to Python).
+        self._std_prev_fmt = np.full(n_streams, -1, dtype=np.int32)
+        # The last timed host-to-device copies of a step: seconds, bytes
+        # (`_transfer`), and the CUDA events of copies not yet read.
         self.last_transfer_s = 0.0
         self.last_transfer_bytes = 0
+        self._copy_times = collections.deque(maxlen=8)
         mb_w, mb_h = -(-width // 16), -(-height // 16)
         self.mb_w, self.mb_h = mb_w, mb_h
 
@@ -281,16 +320,37 @@ class BatchedStreamDecoder:
 
     def _transfer(self, host, buf):
         """Copy the host tensors to the device (`non_blocking` from pinned
-        memory); the event after the copies guards `buf`'s reuse."""
-        t0 = time.perf_counter()
-        dev = [t.to(self.device, non_blocking=self._pin) for t in host]
-        if self._pin and buf is not None:
-            buf.copied = torch.cuda.Event()
-            buf.copied.record()
-        self.last_transfer_s = time.perf_counter() - t0
-        self.last_transfer_bytes = sum(t.numel() * t.element_size()
-                                       for t in host)
+        memory); the event after the copies guards `buf`'s reuse.  On the
+        card, CUDA events around the copies time them, and
+        `last_transfer_s` / `last_transfer_bytes` hold the last copies
+        whose events have completed (`_read_copy_times`); on the CPU, the
+        host time of the copies."""
+        nbytes = sum(t.numel() * t.element_size() for t in host)
+        if not self._pin:
+            t0 = time.perf_counter()
+            dev = [t.to(self.device) for t in host]
+            self.last_transfer_s = time.perf_counter() - t0
+            self.last_transfer_bytes = nbytes
+            return dev
+        self._read_copy_times()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev = [t.to(self.device, non_blocking=True) for t in host]
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        if buf is not None:
+            buf.copied = end
+        self._copy_times.append((start, end, nbytes))
         return dev
+
+    def _read_copy_times(self) -> None:
+        """Take the times of the earlier steps' copies whose events have
+        completed (`query`, no wait): the host-to-device rate that the
+        pool's front-end trigger reads, one step behind."""
+        while self._copy_times and self._copy_times[0][1].query():
+            start, end, nbytes = self._copy_times.popleft()
+            self.last_transfer_s = start.elapsed_time(end) / 1e3
+            self.last_transfer_bytes = nbytes
 
     # -- host stage -----------------------------------------------------------
 
@@ -323,6 +383,12 @@ class BatchedStreamDecoder:
         if not pic.picture_type.is_disposable():
             st.has_reference = True
         st.running_options = running
+        if not self._sorenson:
+            # Bookkeeping for the native standard parse's format rule.
+            bits = -2
+            if not pic.has_plusptype and pic.format is not None:
+                bits = _STD_FMT_BITS.get(pic.format.kind, -2)
+            self._std_prev_fmt[stream_idx] = bits
 
     def reset_slot_state(self, slot: int,
                          running: Optional[PictureOption] = None) -> None:
@@ -333,13 +399,17 @@ class BatchedStreamDecoder:
                               else PictureOption.NONE)
         st.last_header = None
         st.has_reference = False
+        self._std_prev_fmt[slot] = -1
 
     def skip_frame_bytes(self) -> bytes:
-        """A cached all-uncoded P-frame at this decoder's dims: every
-        macroblock copies its reference with MV 0, so a slot decoding it
-        with the commit suppressed keeps its planes and header state."""
+        """A cached all-uncoded P-frame at this decoder's dims, in its own
+        flavour: every macroblock copies its reference with MV 0, so a slot
+        decoding it with the commit suppressed keeps its planes and header
+        state."""
         if self._skip_frame is None:
-            self._skip_frame = encode_sorenson_picture(
+            enc = (encode_sorenson_picture if self._sorenson
+                   else encode_standard_picture)
+            self._skip_frame = enc(
                 self.w, self.h, PictureTypeCode.P_FRAME,
                 [MBSpec(kind="uncoded")] * (self.mb_w * self.mb_h))
         return self._skip_frame
@@ -378,6 +448,8 @@ class BatchedStreamDecoder:
         staging rows, and commit the header states; a failure raises with
         nothing committed.  False `mask` slots decode the skip frame with
         the commit and the reference rule suppressed."""
+        if not self._sorenson:
+            return self.parse_batch_packed_standard(buffers, packed, mask)
         stride = 8 if self._mv_full else 2
         if packed.fused is None or packed.fused_mv_stride != stride:
             nmb = self.mb_w * self.mb_h
@@ -395,6 +467,99 @@ class BatchedStreamDecoder:
         packed.varied_mvs[:] = (flags & 2) != 0
         packed.cut = cut
         self._commit_sorenson_headers(hdr, mask)
+
+    def parse_batch_packed_standard(self, buffers: Sequence[bytes],
+                                    packed: _PackedBatch, mask=None) -> None:
+        """The standard parse of every stream's frame into `packed`'s rows,
+        MVs and flags, and the header commit; a failure raises with
+        nothing committed.  Plain-PTYPE headers parse in one native call;
+        any other header makes it raise `NeedsPythonHeader` (nothing
+        committed) and the batch replays through the Python header parser
+        with the native packed parse per stream."""
+        if len(buffers) != self.n:
+            raise ValueError(f"expected {self.n} buffers, got {len(buffers)}")
+        if packed.rows is None:
+            packed.rows_t, packed.rows = _pinned((self.n, 3 * self.pack_cap),
+                                                 torch.uint8, self._pin)
+            packed.std_parser = StandardBatchParser(
+                self.n, self.w, self.h, packed.rows, packed.mvs,
+                packed.inter, self._pred_scratch)
+        bufs = [(b if type(b) is bytes else bytes(b))
+                if mask is None or mask[i] else self.skip_frame_bytes()
+                for i, b in enumerate(buffers)]
+        try:
+            return self._parse_std_native(bufs, packed, mask)
+        except NeedsPythonHeader:
+            incr("std_python_header_replays")
+        staged = []
+        for i, b in enumerate(bufs):
+            live = mask is None or mask[i]
+            r = BitReader(b)
+            pic, running = self._parse_header(i, r)
+            count, _ = parse_frame_native_packed(
+                r.data, r.pos, pic, self.decoder_options, running, self.w,
+                self.h, packed.rows[i], packed.mvs[i], packed.inter[i],
+                self._pred_scratch)
+            if (live and not self.states[i].has_reference
+                    and packed.inter[i].any()):
+                raise UncodedIFrameBlocks(f"stream {i}: no reference picture")
+            packed.rows[i, 3 * count:] = 0
+            packed.counts[i] = count
+            staged.append((pic, running) if live else None)
+        m = packed.mvs
+        packed.varied_mvs[:] = (m != m[:, :, :, 0:1, :]).any(axis=(1, 2, 3, 4))
+        for i, st in enumerate(staged):
+            if st is not None:
+                self._commit_header(i, *st)
+
+    def _parse_std_native(self, bufs, packed: _PackedBatch, mask) -> None:
+        """The one native call of a standard step, and the header commit
+        from its rows (Pictures cached per distinct row).  Raises
+        `NeedsPythonHeader` with nothing committed when a header needs the
+        Python parser."""
+        p = packed.std_parser
+        has_ref = [True] * self.n
+        for i, st in enumerate(self.states):
+            if mask is None or mask[i]:
+                has_ref[i] = st.has_reference
+            p.prev_running[i] = int(st.running_options)
+        p.prev_fmt[:] = self._std_prev_fmt
+        hdr, counts, flags = p.parse(bufs, has_ref)
+        packed.counts[:] = counts
+        packed.varied_mvs[:] = (flags & 2) != 0
+        rows = hdr.tobytes()
+        rowlen = hdr.shape[1] * hdr.itemsize
+        pic_cache, po_cache = self._pic_cache, self._po_cache
+        for i, st in enumerate(self.states):
+            if mask is not None and not mask[i]:
+                continue  # padded slot: no header-state commit
+            key = rows[i * rowlen:(i + 1) * rowlen]
+            ent = pic_cache.get(key)
+            if ent is None:
+                row = hdr[i]
+                pic = Picture(
+                    version=None,
+                    temporal_reference=int(row[0]),
+                    format=SourceFormat.standard(_STD_KIND_BY_BITS[
+                        int(row[8])]),
+                    options=PictureOption(int(row[4])),
+                    has_plusptype=False,
+                    has_opptype=False,
+                    picture_type=(PictureTypeCode.I_FRAME if row[3] == 0
+                                  else PictureTypeCode.P_FRAME),
+                    quantizer=int(row[5]),
+                    multiplex_bitstream=(int(row[7]) if row[6] else None),
+                )
+                ent = (pic, int(row[9]), int(row[8]))
+                pic_cache[key] = ent
+            pic, running, fmt_bits = ent
+            st.last_header = pic
+            st.has_reference = True  # standard has no disposable frames
+            po = po_cache.get(running)
+            if po is None:
+                po = po_cache[running] = PictureOption(running)
+            st.running_options = po
+            self._std_prev_fmt[i] = fmt_bits
 
     def _prepare_sorenson_buffers(self, buffers, mask):
         """(buffers as bytes, has_reference), masked slots padded with the
@@ -484,7 +649,12 @@ class BatchedStreamDecoder:
         d24[:3*cut]] the unpack kernel reads.  On the flip step (block MVs
         vary while the rows are slim) the rows' delta24 entries go beside
         the full int16 MVs and byte flags instead, and later parses write
-        8 B/MB rows."""
+        8 B/MB rows.  A standard step ships its delta24 rows whole beside
+        the full MVs and flags, and the unpack kernel reads the rows up to
+        the smallest cut of the ladder that holds every stream's
+        entries."""
+        if not self._sorenson:
+            return self._step_standard(packed)
         nmb = self.mb_w * self.mb_h
         flip = bool(packed.varied_mvs.any()) and packed.fused_mv_stride == 2
         mv_full = packed.fused_mv_stride == 8
@@ -508,6 +678,18 @@ class BatchedStreamDecoder:
                     mbw=self.mb_w)
         return self._advance(out, "steps",
                              "steps_fused_flip" if flip else "steps_fused")
+
+    def _step_standard(self, packed: _PackedBatch):
+        k = int(packed.counts.max()) if self.n else 0
+        cut = int(self._ladder[np.searchsorted(self._ladder, k)])
+        with trace_stage("transfer"):
+            dev = self._transfer((packed.rows_t, packed.mvs_t,
+                                  packed.inter_t), packed)
+        with trace_stage("reconstruct_dispatch"):
+            out = reconstruct_frame_packed_d24(
+                dev[0][:, :3 * cut], dev[1], dev[2], self.ref_y,
+                self.ref_cb, self.ref_cr)
+        return self._advance(out, "steps")
 
     def submit_step(self, buffers: Sequence[bytes]):
         """Pipelined decode: parse this frame now (caller thread), then copy

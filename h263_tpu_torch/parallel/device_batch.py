@@ -3,9 +3,19 @@
 Port of `h263_tpu/parallel/device_batch.py::DeviceFrontendDecoder`, ragged
 payload only: the single-frame step and the K-frame window.  Per step:
 
-    native header prep (host) -> one host-to-device copy of the ragged
-    payload + int32 meta [6, S] -> entropy automaton (CUDA kernel) ->
-    IDCT + motion compensation + add-clamp (one CUDA kernel) -> planes
+    host header prep -> one host-to-device copy of the ragged payload +
+    int32 meta [6, S] -> entropy automaton (CUDA kernel) -> IDCT + motion
+    compensation + add-clamp (one CUDA kernel) -> planes
+
+Sorenson streams take the native header prep (`native.DevicePrepBatch`,
+one call for every stream).  Standard H.263 streams (`DecoderOption.NONE`)
+take the JAX package's Python header loop: each stream's picture header
+parses against its last one, the running options carry forward
+(`_running`: a plain PTYPE keeps the UMV / MODIFIED_QUANTIZATION of an
+earlier OPPTYPE), and `parser.device_frontend.encode_ptype` ships them to
+the automaton in the ptype word; the loop packs the same ragged layout.
+As in the JAX package, a standard decoder has no window (`decode_steps`
+raises), since its headers chain from frame to frame on the host.
 
 A window (`decode_steps`) of T frames per stream stages all T frames into
 one buffer and makes one copy and one automaton launch over T*S lanes, then
@@ -43,16 +53,30 @@ from ..decoder.reconstruct import (
     present_rgba_batched,
     reconstruct_from_dense,
 )
+from ..bitio import BitReader
 from ..native import DevicePrepBatch
 from ..ops.deblock import QUANT_TO_STRENGTH
 from ..parser.automaton_cuda import parse_assemble_cuda
-from ..testing.encoder import MBSpec, encode_sorenson_picture
-from ..types import DecoderOption, H263Error, PictureTypeCode
+from ..parser.device_frontend import encode_ptype
+from ..parser.picture import decode_picture
+from ..testing.encoder import (
+    MBSpec,
+    encode_sorenson_picture,
+    encode_standard_picture,
+)
+from ..types import (
+    DecoderOption,
+    H263Error,
+    PictureOption,
+    PictureTypeCode,
+    carry_forward_options,
+)
 from ..utils.trace import incr, trace_stage
 
 
 class DeviceFrontendDecoder:
-    """Decode S same-resolution Sorenson streams, one frame per stream per
+    """Decode S same-resolution streams, Sorenson or (with
+    `DecoderOption.NONE`) standard H.263, one frame per stream per
     `decode_step`, on `device` ("cuda", the default, or "cpu"; no fallback
     between them).
     """
@@ -66,16 +90,22 @@ class DeviceFrontendDecoder:
                                "available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
-        if not decoder_options & DecoderOption.SORENSON_SPARK_BITSTREAM:
-            raise ValueError("the native header prep parses Sorenson "
-                             "headers only")
+        self.decoder_options = decoder_options
         self.n = n_streams
         self.w, self.h = width, height
         self.cw, self.ch = (width + 1) // 2, (height + 1) // 2
         self.mb_w, self.mb_h = -(-width // 16), -(-height // 16)
         cap = (((max_frame_bytes or 8192) + 3) // 4) * 4
         self.max_frame_bytes = cap
-        self._prep = DevicePrepBatch(n_streams, width, height)
+        # The native prep parses Sorenson headers; standard ones take the
+        # Python loop of `_prepare_standard`.
+        self._prep = (DevicePrepBatch(n_streams, width, height)
+                      if decoder_options
+                      & DecoderOption.SORENSON_SPARK_BITSTREAM else None)
+        # Per-stream header state of a standard stream: its last picture
+        # header and the running options it carries (state.rs:147-155).
+        self._pictures = [None] * n_streams
+        self._running = [PictureOption.NONE] * n_streams
 
         def planes(h, w):
             return torch.zeros((n_streams, h, w), dtype=torch.uint8,
@@ -107,9 +137,13 @@ class DeviceFrontendDecoder:
     # -- host-side helpers ---------------------------------------------------
 
     def _skip_frame_bytes(self) -> bytes:
-        """An all-uncoded P-frame: decodes to the identity frame."""
+        """An all-uncoded P-frame: decodes to the identity frame.  Encoded
+        in the decoder's own flavour, so its header parses under the same
+        options."""
         if self._skip is None:
-            self._skip = encode_sorenson_picture(
+            enc = (encode_sorenson_picture if self._prep is not None
+                   else encode_standard_picture)
+            self._skip = enc(
                 self.w, self.h, PictureTypeCode.P_FRAME,
                 [MBSpec(kind="uncoded")] * (self.mb_w * self.mb_h),
                 temporal_reference=0)
@@ -158,6 +192,60 @@ class DeviceFrontendDecoder:
         np.copyto(self._last_quant, hdr[:, 6], where=commit)
         np.copyto(self._last_deblock, hdr[:, 5] != 0, where=commit)
 
+    def _prepare_standard(self, buffers):
+        """The standard header prep, the JAX package's Python loop: per
+        stream, the picture header against the stream's last one, the dims
+        check (an inherited format passes), the carried running options,
+        and on success the header state and presentation params committed
+        (present lanes only).  A stream that fails (over the cap, a header
+        error) stages the skip frame with no options, and the first error
+        is returned.  Returns (the payload: each stream's bytes padded to
+        whole words, back to back; meta int32 [6, S]; first error)."""
+        cap, skip = self.max_frame_bytes, self._skip_frame_bytes()
+        meta = np.zeros((6, self.n), dtype=np.int32)
+        parts, woff = [], 0
+        first_err: Optional[Exception] = None
+        for i, buf in enumerate(buffers):
+            absent = buf is None
+            if absent:
+                buf = skip
+            running = None  # set when the real header parses
+            try:
+                if len(buf) > cap:
+                    raise H263Error(f"frame exceeds transfer bucket "
+                                    f"({len(buf)} > {cap} bytes)")
+                r = BitReader(bytes(buf))
+                pic = decode_picture(r, self.decoder_options,
+                                     self._pictures[i])
+                if pic is None:
+                    raise H263Error("outside device front-end scope")
+                fmt = pic.format.width_and_height() if pic.format else None
+                if fmt is not None and fmt != (self.w, self.h):
+                    raise H263Error(f"stream {i} resolution {fmt} != bucket "
+                                    f"({self.w}, {self.h})")
+                # The MB layer runs under the CARRIED options, which
+                # encode_ptype ships to the automaton.
+                running = carry_forward_options(pic, self._running[i])
+                if not absent:
+                    self._pictures[i] = pic
+                    self._running[i] = running
+                    self._last_quant[i] = pic.quantizer
+                    self._last_deblock[i] = bool(
+                        pic.options & PictureOption.USE_DEBLOCKER)
+            except H263Error as e:
+                if first_err is None:
+                    first_err = e
+                r = BitReader(skip)
+                pic = decode_picture(r, self.decoder_options, None)
+                running = None  # the skip frame carries no options
+            data = r.data
+            words = (len(data) + 3) // 4
+            parts.append(bytes(data) + b"\0" * (4 * words - len(data)))
+            meta[:, i] = (r.pos, 8 * len(data), pic.quantizer,
+                          encode_ptype(pic, running), 0, woff)
+            woff += words
+        return b"".join(parts), meta, first_err
+
     def _staged(self, buffers):
         """The buffers as the prep takes them: the skip frame for None, an
         empty payload (a header reject) for a frame over the cap."""
@@ -179,22 +267,31 @@ class DeviceFrontendDecoder:
             raise ValueError(f"expected {self.n} buffers, got {len(buffers)}")
         if mask is not None:
             buffers = [b if mask[i] else None for i, b in enumerate(buffers)]
-        bufs = self._staged(buffers)
-        stage, meta = self._next_stage(
-            sum(((len(b) + 3) // 4) * 4 for b in bufs) + 4)
-        meta = meta[0]
-
         first_err: Optional[Exception] = None
-        with trace_stage("host_parse"):
-            failed = self._prep.prepare_ragged(bufs, stage.numpy(),
-                                               meta.numpy())
-            okm = self._prep.rc == 0
-            self._commit(buffers, okm)
-            if failed:
-                i = int(np.argmin(okm))
-                first_err = H263Error(
-                    f"stream {i}: header rejected by device front-end prep "
-                    f"(rc {int(self._prep.rc[i])})")
+        if self._prep is None:
+            with trace_stage("host_parse"):
+                payload, meta_np, first_err = self._prepare_standard(buffers)
+            stage, meta = self._next_stage(len(payload) + 4)
+            flat = stage.numpy().reshape(-1)
+            flat[:len(payload)] = np.frombuffer(payload, dtype=np.uint8)
+            flat[len(payload):] = 0
+            meta = meta[0]
+            meta.numpy()[:] = meta_np
+        else:
+            bufs = self._staged(buffers)
+            stage, meta = self._next_stage(
+                sum(((len(b) + 3) // 4) * 4 for b in bufs) + 4)
+            meta = meta[0]
+            with trace_stage("host_parse"):
+                failed = self._prep.prepare_ragged(bufs, stage.numpy(),
+                                                   meta.numpy())
+                okm = self._prep.rc == 0
+                self._commit(buffers, okm)
+                if failed:
+                    i = int(np.argmin(okm))
+                    first_err = H263Error(
+                        f"stream {i}: header rejected by device front-end "
+                        f"prep (rc {int(self._prep.rc[i])})")
 
         dev_stage, dev_meta = self._copy_to_device(stage, meta)
         with trace_stage("reconstruct_dispatch"):
@@ -239,6 +336,9 @@ class DeviceFrontendDecoder:
         writes its outputs straight and never overflows), and the
         `pallas=` / `unroll=` / `tape_len=` knobs.
         """
+        if self._prep is None:
+            raise ValueError("decode_steps requires the native header prep "
+                             "(Sorenson streams)")
         T = len(frame_lists)
         if T < 1:
             raise ValueError("empty window")
@@ -314,16 +414,19 @@ class DeviceFrontendDecoder:
             self._last_deblock[:] = np.asarray(last_deblock, dtype=np.bool_)
 
     def reset_slot_state(self, slot: int, running=None) -> None:
-        """Reset one lane to a fresh stream: planes zeroed, presentation
-        params and status cleared (the pool's slot-recycle contract).
-        `running` is the JAX package's carried-options seed, which Sorenson
-        headers never use; it is accepted for the same call shape."""
+        """Reset one lane to a fresh stream: planes zeroed, no previous
+        header, presentation params and status cleared (the pool's
+        slot-recycle contract).  `running` seeds the carried options (a
+        standard stream rebucketed with them); None is a fresh stream."""
         # Out of place: the planes and status a step returned stay as
         # they were.
         idx = torch.tensor([slot], device=self.device)
         self.ref_y = self.ref_y.index_fill(0, idx, 0)
         self.ref_cb = self.ref_cb.index_fill(0, idx, 0)
         self.ref_cr = self.ref_cr.index_fill(0, idx, 0)
+        self._pictures[slot] = None
+        self._running[slot] = (PictureOption.NONE if running is None
+                               else running)
         self._last_quant[slot] = 8
         self._last_deblock[slot] = False
         if self.last_status is not None:

@@ -1,7 +1,8 @@
 """Mixed-resolution stream pool with dynamic membership, PyTorch.
 
-Port of `h263_tpu/parallel/pool.py::StreamPool` for Sorenson Spark streams,
-with either entropy front-end: `frontend="device"` (the port's default:
+Port of `h263_tpu/parallel/pool.py::StreamPool`, for Sorenson Spark streams
+and (with `DecoderOption.NONE`) standard H.263, with either entropy
+front-end: `frontend="device"` (the port's default:
 `DeviceFrontendDecoder` buckets, the entropy automaton on the card) or
 `"host"` (`BatchedStreamDecoder` buckets, the native host parse and the
 fused transport; the JAX package's default).  Streams of different
@@ -22,21 +23,40 @@ per-resolution buckets; within a bucket, slots decode in lockstep:
   over); the frame must first pass the host parse in full with no INTER
   macroblock.  A non-I frame at other dimensions, a frame that fails that
   parse, or dimensions beyond `max_dims`, raises PictureFormatInvalid and
-  leaves the stream where it was.
+  leaves the stream where it was.  A Sorenson header names its dims at a
+  fixed place; a standard one is probed at fixed bits first (plain PTYPE
+  formats, OPPTYPE formats, an inherited format), and only an ambiguous or
+  changed answer runs the Python header parse against the stream's last
+  header.  As in the reference, that parse refuses any change of format
+  against the stream's last picture (UnimplementedDecoding, raised by the
+  stream's bucket), so only a standard stream with no picture yet moves;
+  the running options its slot holds go with it, from either front-end.
 
 A device pool's `decode_steps` decodes a window of T frames with one
 `DeviceFrontendDecoder.decode_steps` per bucket (one copy, one automaton
 launch, T reconstructions), frame for frame equal to T `decode_step` calls;
 a window in which a stream changes resolution falls back to those calls
-(counted as `pool_window_fallbacks`), and a host pool always runs them.
+(counted as `pool_window_fallbacks`), as does every window of a standard
+pool (its decoders have no window step), and a host pool always runs them.
+
+`switch_frontend("device")` moves a Sorenson host pool onto device
+buckets live: the planes stay where they are on the device, and each
+stream's last header, running options, quantizer and deblock flag move
+into the new `DeviceFrontendDecoder`s.  With `adaptive_frontend=True` a
+host pool switches by itself when its host-to-device rate, an average
+of each step's copy time over its bytes, falls `degrade_ratio` times
+below the best average seen after `adapt_min_samples` steps (the JAX
+package's trigger, with its defaults).  The copy time comes from CUDA
+events around each step's copies, read one step later once they have
+completed, so the host never waits for them.  Counters:
+`pool_degraded_window_detected`, `pool_frontend_switches`.
 
 The device front-end stays the port's default: the H100 readings of
 PERF.md favour it (phase 11 of chip_smoke.py sets the host front-end beside
 it).
 
-Not ported (see ROADMAP): `switch_frontend` and the adaptive trigger,
-standard-H.263 pools, and `resolve_overflows` (the port's automaton has no
-tape and never overflows).
+Not ported: `resolve_overflows` (the port's automaton has no tape and
+never overflows).
 """
 
 from __future__ import annotations
@@ -49,7 +69,13 @@ import torch
 from ..bitio import BitReader
 from ..parser.frame import parse_frame_auto
 from ..parser.picture import decode_picture
-from ..types import DecoderOption, H263Error, PictureFormatInvalid
+from ..types import (
+    DecoderOption,
+    H263Error,
+    PictureFormatInvalid,
+    PictureOption,
+    PictureTypeCode,
+)
 from ..utils.trace import incr
 from .batch import BatchedStreamDecoder
 from .device_batch import DeviceFrontendDecoder
@@ -69,6 +95,47 @@ class _Bucket:
             if sid in present:
                 m[slot] = True
         return m
+
+
+#: Plain-PTYPE / OPPTYPE 3-bit source-format codes -> dims (H.263 table 2).
+_STD_FMT_DIMS = {1: (128, 96), 2: (176, 144), 3: (352, 288),
+                 4: (704, 576), 5: (1408, 1152)}
+
+
+def _sniff_standard_probe(buf: bytes, current_dims):
+    """Cheap dims probe of a STANDARD picture: "unchanged", "changed", or
+    None (ambiguous: the caller runs the full header parse).
+
+    Reads fixed-offset PTYPE/PLUSPTYPE fields from the first 8 bytes:
+    PSC(17) GN(5) TR(8) PTYPE['1','0',3 flags] fmt(3); fmt 1-5 are fixed
+    formats, 7 is PLUSPTYPE (UFEP(3): 000 inherits the previous format,
+    001 carries OPPTYPE whose own fmt(3) is read the same way; custom
+    formats need CPFMT and fall back).  It never answers "unchanged" when
+    the true dims differ; an inherited format (UFEP=000) is unchanged by
+    definition."""
+    if len(buf) < 8:
+        return None
+    v = int.from_bytes(buf[:8], "big")
+    if (v >> 42) != 0b1_00000:      # PSC(17) + GN==0
+        return None
+    if (v >> 33) & 1 != 1 or (v >> 32) & 1 != 0:  # PTYPE '10' marker
+        return None
+    fmt = (v >> 26) & 7
+    if fmt in _STD_FMT_DIMS:
+        return ("unchanged" if _STD_FMT_DIMS[fmt] == tuple(current_dims)
+                else "changed")
+    if fmt != 7:
+        return None  # forbidden/reserved: the full parse raises precisely
+    ufep = (v >> 23) & 7
+    if ufep == 0:
+        return "unchanged"  # no OPPTYPE: format inherited
+    if ufep != 1:
+        return None
+    ofmt = (v >> 20) & 7
+    if ofmt in _STD_FMT_DIMS:
+        return ("unchanged" if _STD_FMT_DIMS[ofmt] == tuple(current_dims)
+                else "changed")
+    return None  # custom (CPFMT) or reserved
 
 
 def _sniff_sorenson(buf: bytes):
@@ -160,8 +227,9 @@ class PoolStepResult:
 
 
 class StreamPool:
-    """Decode many Sorenson streams of mixed resolutions with dynamic
-    membership, on `device` ("cuda", the default, or "cpu").
+    """Decode many streams of mixed resolutions, Sorenson or (with
+    `DecoderOption.NONE`) standard H.263, with dynamic membership, on
+    `device` ("cuda", the default, or "cpu").
 
     Usage:
         pool = StreamPool()
@@ -176,8 +244,10 @@ class StreamPool:
     """
 
     def __init__(self, decoder_options: DecoderOption = DecoderOption.SORENSON_SPARK_BITSTREAM,
-                 frontend: str = "device", max_dims: tuple = (2048, 2048), *,
-                 device="cuda", max_frame_bytes: Optional[int] = None):
+                 frontend: str = "device", max_dims: tuple = (2048, 2048),
+                 adaptive_frontend: bool = False, degrade_ratio: float = 8.0,
+                 adapt_min_samples: int = 8, *, device="cuda",
+                 max_frame_bytes: Optional[int] = None):
         """`frontend` selects each bucket's decoder: "device"
         (`DeviceFrontendDecoder`, the default) or "host"
         (`BatchedStreamDecoder`).  `max_dims` bounds the resolutions a
@@ -185,23 +255,44 @@ class StreamPool:
         dims, so an unchecked (possibly corrupt) header must not allocate a
         65535x65535 bucket -- frames beyond the bound fail per stream
         instead.  `device` passes to the bucket decoders and
-        `max_frame_bytes` to device ones."""
+        `max_frame_bytes` to device ones.
+
+        `adaptive_frontend` (Sorenson pools only, as in the JAX package):
+        a host pool switches to the device front-end when its
+        host-to-device rate falls `degrade_ratio` times below the best
+        seen over at least `adapt_min_samples` steps (module
+        docstring)."""
         if frontend not in ("host", "device"):
             raise ValueError(f"unknown frontend {frontend!r}")
-        if not decoder_options & DecoderOption.SORENSON_SPARK_BITSTREAM:
-            raise ValueError("the port's pool decodes Sorenson streams only")
+        if adaptive_frontend and not (
+                decoder_options & DecoderOption.SORENSON_SPARK_BITSTREAM):
+            raise ValueError("adaptive_frontend requires a Sorenson pool")
         self.decoder_options = decoder_options
+        self._sorenson = bool(decoder_options
+                              & DecoderOption.SORENSON_SPARK_BITSTREAM)
         self.frontend = frontend
         self.max_dims = max_dims
+        self.adaptive_frontend = adaptive_frontend
+        self.degrade_ratio = float(degrade_ratio)
+        self.adapt_min_samples = int(adapt_min_samples)
         self.device = device
         self.max_frame_bytes = max_frame_bytes
         self._pending: dict = {}          # (w, h) -> [stream_id, ...]
         self._pending_running: dict = {}  # stream_id -> carried options
         self._buckets: dict = {}          # (w, h) -> _Bucket
         self._dims: dict = {}             # stream_id -> (w, h)
+        # The rate monitor: an average of bytes/s, the best average seen.
+        self._bw_ema: Optional[float] = None
+        self._bw_best = 0.0
+        self._bw_samples = 0
+        # Where a host bucket's last copy reading comes from (the tests
+        # feed readings here).
+        self._transfer_stats_fn = (
+            lambda dec: (dec.last_transfer_bytes, dec.last_transfer_s))
 
-    def _make_decoder(self, n: int, width: int, height: int):
-        if self.frontend == "host":
+    def _make_decoder(self, n: int, width: int, height: int,
+                      frontend: Optional[str] = None):
+        if (frontend or self.frontend) == "host":
             return BatchedStreamDecoder(n, width, height,
                                         self.decoder_options,
                                         device=self.device)
@@ -266,8 +357,11 @@ class StreamPool:
         dec = self._make_decoder(n_new, key[0], key[1])
         if self.frontend == "host":
             dec.states[:n_old] = old.dec.states
+            dec._std_prev_fmt[:n_old] = old.dec._std_prev_fmt
             dec._mv_full = old.dec._mv_full
         else:
+            dec._pictures[:n_old] = old.dec._pictures
+            dec._running[:n_old] = old.dec._running
             dec._last_quant[:n_old] = old.dec._last_quant
             dec._last_deblock[:n_old] = old.dec._last_deblock
             if old.dec.last_status is not None:
@@ -284,6 +378,37 @@ class StreamPool:
         self._buckets[key] = bucket
 
     # -- resolution change ----------------------------------------------------
+
+    def _sniff(self, stream_id, buf: bytes):
+        """(w, h, is_iframe) of the frame, or None if unparseable."""
+        if self._sorenson:
+            return _sniff_sorenson(bytes(buf))
+        # The probe answers the common "dims unchanged" case from a few
+        # fixed bits; an ambiguous or changed answer takes the full header
+        # parse against the stream's last header.
+        if _sniff_standard_probe(bytes(buf),
+                                 self._dims[stream_id]) == "unchanged":
+            w, h = self._dims[stream_id]
+            return w, h, False  # is_iframe unused when the dims match
+        bucket = self._buckets.get(self._dims[stream_id])
+        last = None
+        if bucket is not None and stream_id in bucket.slots:
+            slot = bucket.slots[stream_id]
+            states = getattr(bucket.dec, "states", None)
+            last = (states[slot].last_header if states is not None
+                    else bucket.dec._pictures[slot])
+        try:
+            pic = decode_picture(BitReader(bytes(buf)), self.decoder_options,
+                                 last)
+        except Exception:
+            return None  # the bucket's parse raises the precise error
+        if pic is None:
+            return None
+        fmt = pic.format or (last.format if last else None)
+        wh = fmt.width_and_height() if fmt else None
+        if wh is None:
+            return None
+        return wh[0], wh[1], pic.picture_type is PictureTypeCode.I_FRAME
 
     def _validate_rebucket_frame(self, buf: bytes, w: int, h: int) -> bool:
         """Full entropy-layer validation of a resolution-change frame BEFORE
@@ -334,11 +459,12 @@ class StreamPool:
                 f"failed full validation; keeping the stream's state")
         bucket = self._buckets[old_key]
         slot = bucket.slots.pop(stream_id)
-        # Running options carry across the rebucket: a host bucket keeps
-        # them per stream; the device front-end's Sorenson headers carry
-        # none.
+        # Running options carry across the rebucket (standard H.263; a
+        # Sorenson header carries none): a host bucket keeps them per
+        # stream state, a device bucket in `_running`.
         states = getattr(bucket.dec, "states", None)
-        running = states[slot].running_options if states else None
+        running = (states[slot].running_options if states is not None
+                   else bucket.dec._running[slot])
         bucket.dec.reset_slot_state(slot)
         bucket.free.append(slot)
         self._dims[stream_id] = new_key
@@ -372,7 +498,7 @@ class StreamPool:
         # Resolution-change pre-pass: move streams whose header disagrees
         # with their bucket before building the lockstep batches.
         for sid, buf in list(buffers.items()):
-            sniffed = _sniff_sorenson(bytes(buf))
+            sniffed = self._sniff(sid, buf)
             if sniffed is None:
                 continue  # let the bucket's header prep raise
             w, h, is_i = sniffed
@@ -384,6 +510,7 @@ class StreamPool:
 
         out = PoolStepResult()
         first_err: Optional[H263Error] = None
+        step_bytes, step_seconds = 0, 0.0
         for bucket in self._buckets.values():
             dec = bucket.dec
             mask = bucket.mask(buffers)
@@ -395,6 +522,10 @@ class StreamPool:
                     batch[slot] = buffers[sid]
             try:
                 y, cb, cr = dec.decode_step(batch, mask=mask)
+                if self.frontend == "host":
+                    nb, s = self._transfer_stats_fn(dec)
+                    step_bytes += nb
+                    step_seconds += s
             except H263Error as e:
                 # Per-stream isolation: the other buckets must still step;
                 # this bucket's planes are not attached.
@@ -404,6 +535,8 @@ class StreamPool:
             for sid, slot in bucket.slots.items():
                 if mask[slot]:
                     out._add(sid, y, cb, cr, slot)
+        if self.adaptive_frontend and self.frontend == "host":
+            self._note_transfer(step_bytes, step_seconds)
         if first_err is not None:
             first_err.pool_step_result = out
             raise first_err
@@ -422,7 +555,9 @@ class StreamPool:
         steps.  A host pool (`BatchedStreamDecoder` has no window step), and
         a window in which any stream's header names other dimensions than
         its bucket's (a resolution change needs the per-frame pre-pass),
-        run as T `decode_step` calls instead.
+        run as T `decode_step` calls instead, as does every window of a
+        standard pool (its decoders have no window step; counted as
+        `pool_window_fallbacks`).
         """
         T = len(frame_lists)
         if T == 0:
@@ -432,6 +567,9 @@ class StreamPool:
             raise KeyError(
                 f"unregistered streams: {sorted(unknown, key=repr)!r}")
         if self.frontend == "host":
+            return [self.decode_step(b) for b in frame_lists]
+        if not self._sorenson:
+            incr("pool_window_fallbacks")
             return [self.decode_step(b) for b in frame_lists]
         for b in frame_lists:
             for sid, buf in b.items():
@@ -474,6 +612,56 @@ class StreamPool:
             first_err.pool_window_results = results
             raise first_err
         return results
+
+    # -- the front-end switch and its trigger (module docstring) -------------
+
+    def _note_transfer(self, nbytes: int, seconds: float) -> None:
+        """Feed one step's copy reading to the rate average; switch the
+        pool to the device front-end when the average falls
+        `degrade_ratio` times below the best average seen."""
+        if nbytes < 1024 or seconds <= 0:
+            return  # too small to estimate a rate
+        bw = nbytes / seconds
+        alpha = 0.3
+        self._bw_ema = (bw if self._bw_ema is None
+                        else alpha * bw + (1 - alpha) * self._bw_ema)
+        self._bw_samples += 1
+        if self._bw_samples < self.adapt_min_samples:
+            return
+        self._bw_best = max(self._bw_best, self._bw_ema)
+        if self._bw_ema < self._bw_best / self.degrade_ratio:
+            incr("pool_degraded_window_detected")
+            self.switch_frontend("device")
+
+    def switch_frontend(self, frontend: str) -> None:
+        """Switch every bucket's decoder to `frontend` live, moving the
+        reference planes (they stay on the device) and each stream's
+        carried header state.  Host to device only, Sorenson pools only,
+        as in the JAX package."""
+        if frontend == self.frontend:
+            return
+        if frontend != "device":
+            raise ValueError("switch_frontend supports host->device only")
+        if not self._sorenson:
+            raise ValueError("frontend switch requires a Sorenson pool")
+        for key, bucket in self._buckets.items():
+            old = bucket.dec
+            new = self._make_decoder(old.n, key[0], key[1],
+                                     frontend="device")
+            # Same stream of work: the new decoder's first step reads the
+            # planes after the old decoder's last step wrote them.
+            new.ref_y, new.ref_cb, new.ref_cr = (old.ref_y, old.ref_cb,
+                                                 old.ref_cr)
+            for i, st in enumerate(old.states):
+                new._pictures[i] = st.last_header
+                new._running[i] = st.running_options
+                if st.last_header is not None:
+                    new._last_quant[i] = st.last_header.quantizer
+                    new._last_deblock[i] = bool(
+                        st.last_header.options & PictureOption.USE_DEBLOCKER)
+            bucket.dec = new
+            incr("pool_frontend_switches")
+        self.frontend = frontend
 
     def present_rgba(self, deblock: Optional[bool] = None) -> dict:
         """RGBA of every registered stream's last decoded frame: {sid: uint8

@@ -2,7 +2,8 @@
 version).
 
 Port of `h263_tpu/parser/device_frontend.py`: `payload_words`, `make_step`,
-`parse_frames_device` (a Python loop here) and `assemble`.  Every stream is
+`parse_frames_device` (a Python loop here), `assemble`, and `encode_ptype`
+(the ptype word a standard header prep ships).  Every stream is
 one lane; every lane runs the same serial VLC automaton, one symbol per
 step, with per-lane control flow turned into per-lane state and masked
 selects.  The semantics, status codes and packed VLC tables are the JAX
@@ -74,6 +75,7 @@ from .tables import (  # noqa: F401  (re-exported)
     _extended_range_for_dim,
     status_error_class,
 )
+from ..types import MotionVectorRange, PictureOption, PictureTypeCode
 from ..vlc_tables import ZIGZAG_TO_ROWMAJOR
 
 _I32 = torch.int32
@@ -736,3 +738,29 @@ def parse_assemble(payload_u8, meta, *, mbh: int, mbw: int, width=None,
                                 width=width, height=height)
     dense, mvs, inter, _ = assemble(tapes, mbh=mbh, mbw=mbw)
     return dense, mvs, inter, tapes["status"]
+
+
+def encode_ptype(picture, running_options=None) -> int:
+    """The automaton's ptype field for a parsed picture header: bits 0-1
+    the type (0 I / 1 P / 2 other), +4 for standard (non-Sorenson), plus
+    the UMV flag bits (+8 v1 range rule / +16 table-D.3 codes / +32
+    EXTENDED range) and +64 for MODIFIED_QUANTIZATION, all derived from
+    the CARRIED running options and this picture's header — the same
+    gates the host's decode_motion_vector / halfpel_decode /
+    decode_macroblock apply (macroblock.rs:414-437,497-498,
+    mvd_pred.rs:70-117)."""
+    base = (0 if picture.picture_type is PictureTypeCode.I_FRAME
+            else 1 if picture.picture_type is PictureTypeCode.P_FRAME else 2)
+    base += 0 if picture.version is not None else 4
+    if (running_options is not None
+            and running_options & PictureOption.UNRESTRICTED_MOTION_VECTORS):
+        if picture.has_plusptype:
+            base += 16
+            if picture.motion_vector_range is MotionVectorRange.EXTENDED:
+                base += 32
+        else:
+            base += 8
+    if (running_options is not None
+            and running_options & PictureOption.MODIFIED_QUANTIZATION):
+        base += 64
+    return base

@@ -6,7 +6,9 @@ bytes come out on any machine.  `reference_sequences` names every stream
 whose decoded planes and RGBA have a SHA-256 digest in
 `testdata/reference_digests.json`; the digests are those of the JAX
 package's numpy reference decoder (`tests/test_torch_digests.py` recomputes
-the file from it and asserts that it is unchanged).
+the file from it and asserts that it is unchanged), with
+`DecoderOption.NONE` for the standard streams (`is_standard`): `s{k}`,
+`sq0`, `u0` and `d0`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,14 @@ import numpy as np
 
 from ..io.flv import iter_flv_video_tags
 from ..types import PictureTypeCode
-from .encoder import MBSpec, encode_sorenson_picture
+from .encoder import (
+    _STANDARD_FORMAT_BITS,
+    BitWriter,
+    MBSpec,
+    encode_macroblock,
+    encode_sorenson_picture,
+    encode_standard_picture,
+)
 
 DIGESTS = Path(__file__).resolve().parent.parent / "testdata" / \
     "reference_digests.json"
@@ -31,11 +40,20 @@ CIF_SEED = 7        # corpus k of CIF is seeded CIF_SEED + k
 QCIF_SEED = 100     # corpus k of QCIF is seeded QCIF_SEED + k
 N_CIF_CORPORA = 16
 N_QCIF_CORPORA = 4
+STD_SEED = 300      # standard corpus k of CIF is seeded STD_SEED + k
+N_STD_CORPORA = 16
+STD_QCIF_SEED = 350  # sq0
+UMV_SEED = 400      # u0
+D3_SEED = 500       # d0
 
 
-def build_corpus(width: int, height: int, n_frames: int, seed: int):
+def build_corpus(width: int, height: int, n_frames: int, seed: int,
+                 standard: bool = False):
     """One I-frame, then P-frames with mixed MVs, coefficients and uncoded
-    macroblocks (the recipe of bench.py's build_corpus)."""
+    macroblocks (the recipe of bench.py's build_corpus), in Sorenson
+    pictures or, with `standard`, standard ones (plain PTYPE at a
+    CIF-family size)."""
+    encode = encode_standard_picture if standard else encode_sorenson_picture
     rng = np.random.default_rng(seed)
     mbw, mbh = -(-width // 16), -(-height // 16)
     mbs = []
@@ -45,7 +63,7 @@ def build_corpus(width: int, height: int, n_frames: int, seed: int):
                for _ in range(int(rng.integers(1, 5)))]
         mbs.append(MBSpec(kind="intra", intradc=[dc] * 6,
                           blocks=[acs, [], [], [], [], []]))
-    frames = [encode_sorenson_picture(
+    frames = [encode(
         width, height, PictureTypeCode.I_FRAME, mbs, temporal_reference=0)]
     for tr in range(1, n_frames):
         mbs = []
@@ -58,10 +76,131 @@ def build_corpus(width: int, height: int, n_frames: int, seed: int):
                    for _ in range(int(rng.integers(0, 4)))]
             mbs.append(MBSpec(kind="inter", mvd=[mvd],
                               blocks=[acs, [], [], [], [], []]))
-        frames.append(encode_sorenson_picture(
+        frames.append(encode(
             width, height, PictureTypeCode.P_FRAME, mbs,
             temporal_reference=tr & 0xFF))
     return frames
+
+
+def plusptype_picture(width: int, height: int, picture_type, mbs=(), *,
+                      umv: bool = False, mq: bool = False, ufep: bool = True,
+                      custom: bool = False, quantizer: int = 9,
+                      temporal_reference: int = 5):
+    """A standard picture with a PLUSPTYPE header, the recipe of the JAX
+    package's tests (`tests/test_plusptype.py::_plusptype_header`,
+    `tests/test_device_frontend.py::TestCarriedOptionsGate._plusptype_qcif`):
+    UFEP 001 with an OPPTYPE whose source format is the standard code of a
+    CIF-family size, else (or with `custom`) custom with CPFMT, and whose
+    options set UMV
+    (with UUI '1': the extended range) and MODIFIED_QUANTIZATION on
+    request; or UFEP 000 (no OPPTYPE: the format and options carry from
+    the stream's last picture).  `mbs` are coded after the header, their
+    MVDs in table D.3 when `umv` (the PLUSPTYPE coding)."""
+    fmt = None if custom else _STANDARD_FORMAT_BITS.get((width, height))
+    w = BitWriter()
+    w.write_bits(1, 17)                   # PSC
+    w.write_bits(0, 5)                    # GN
+    w.write_bits(temporal_reference & 0xFF, 8)
+    w.write_code("10000")                 # PTYPE: '10' + no split/doc/freeze
+    w.write_code("111")                   # source format 7 => PLUSPTYPE
+    if ufep:
+        w.write_code("001")               # UFEP: OPPTYPE present
+        w.write_bits(6 if fmt is None else fmt, 3)   # 6: custom (CPFMT)
+        w.write_bits(0, 1)                # custom PCF off
+        w.write_bits(1 if umv else 0, 1)  # UMV (Annex D)
+        w.write_bits(0, 8)                # SAC..AIV off
+        w.write_bits(1 if mq else 0, 1)   # MODIFIED_QUANTIZATION
+        w.write_code("1000")              # mandatory tail
+    else:
+        w.write_code("000")               # UFEP: no OPPTYPE
+    w.write_code("000" if picture_type is PictureTypeCode.I_FRAME
+                 else "001")              # MPPTYPE: I / P
+    w.write_code("000")                   # rprp/rru/rounding off
+    w.write_code("001")                   # mandatory tail
+    w.write_bits(0, 1)                    # CPM off
+    if ufep and fmt is None:
+        # CPFMT: PAR=0001 (square), PWI, '1', PHI
+        w.write_bits(0b0001, 4)
+        w.write_bits(width // 4 - 1, 9)
+        w.write_bits(1, 1)
+        w.write_bits(height // 4, 9)
+    if ufep and umv:
+        w.write_bits(1, 1)                # UUI: '1' => extended range
+    w.write_bits(quantizer, 5)            # PQUANT
+    w.write_bits(0, 1)                    # PEI end
+    for mb in mbs:
+        encode_macroblock(w, mb, picture_type, None, umv_d3=umv)
+    return w.to_bytes()
+
+
+def _intra_mbs(rng, nmb):
+    return [MBSpec(kind="intra", intradc=[int(rng.integers(1, 128)) * 8] * 6,
+                   blocks=[[(int(rng.integers(0, 3)),
+                             int(rng.integers(1, 10)))], [], [], [], [], []])
+            for _ in range(nmb)]
+
+
+def _inter_mbs(rng, nmb, reach):
+    mbs = []
+    for _ in range(nmb):
+        if rng.random() < 0.2:
+            mbs.append(MBSpec(kind="uncoded"))
+            continue
+        mvd = (int(rng.integers(-reach, reach + 1)),
+               int(rng.integers(-reach, reach + 1)))
+        acs = [(int(rng.integers(0, 4)), int(rng.integers(1, 8)))
+               for _ in range(int(rng.integers(0, 4)))]
+        mbs.append(MBSpec(kind="inter", mvd=[mvd],
+                          blocks=[acs, [], [], [], [], []]))
+    return mbs
+
+
+def umv_corpus(width: int = 352, height: int = 288, n_frames: int = 8,
+               seed: int = UMV_SEED):
+    """A PLUSPTYPE I-picture whose OPPTYPE sets UMV, then plain-PTYPE
+    P-frames: their own headers carry no UMV, so they decode under the
+    carried option with the range rule of UMV without PLUSPTYPE (the
+    automaton's ptype +8).  MVDs up to +-14 half-pels let predictions leave
+    the picture."""
+    rng = np.random.default_rng(seed)
+    nmb = (-(-width // 16)) * (-(-height // 16))
+    frames = [plusptype_picture(width, height, PictureTypeCode.I_FRAME,
+                                _intra_mbs(rng, nmb), umv=True, quantizer=8,
+                                temporal_reference=0)]
+    for tr in range(1, n_frames):
+        frames.append(encode_standard_picture(
+            width, height, PictureTypeCode.P_FRAME,
+            _inter_mbs(rng, nmb, 14), temporal_reference=tr))
+    return frames
+
+
+def d3_corpus(width: int = 176, height: int = 144, n_frames: int = 8,
+              seed: int = D3_SEED):
+    """PLUSPTYPE pictures throughout, every OPPTYPE setting UMV with the
+    extended range: MVDs in table D.3 (the automaton's ptype +16 +32), up
+    to +-40 half-pels."""
+    rng = np.random.default_rng(seed)
+    nmb = (-(-width // 16)) * (-(-height // 16))
+    frames = [plusptype_picture(width, height, PictureTypeCode.I_FRAME,
+                                _intra_mbs(rng, nmb), umv=True, quantizer=8,
+                                temporal_reference=0)]
+    for tr in range(1, n_frames):
+        frames.append(plusptype_picture(
+            width, height, PictureTypeCode.P_FRAME, _inter_mbs(rng, nmb, 40),
+            umv=True, quantizer=8, temporal_reference=tr))
+    return frames
+
+
+def mq_picture(width: int = 352, height: int = 288, seed: int = 600):
+    """A PLUSPTYPE I-picture whose OPPTYPE sets MODIFIED_QUANTIZATION, with
+    coded macroblocks: the reference does not implement its MB layer, so
+    the picture fails (UnimplementedDecoding) and decodes as the identity
+    frame, and the option carries into the stream's later pictures."""
+    rng = np.random.default_rng(seed)
+    nmb = (-(-width // 16)) * (-(-height // 16))
+    return plusptype_picture(width, height, PictureTypeCode.I_FRAME,
+                             _intra_mbs(rng, nmb), mq=True, quantizer=8,
+                             temporal_reference=0)
 
 
 def rich_gop(seed, width=48, height=32, n=5, version=1):
@@ -161,6 +300,20 @@ def qcif_corpus(k: int):
     return build_corpus(*QCIF, GOP, seed=QCIF_SEED + k)
 
 
+def std_corpus(k: int):
+    return build_corpus(*CIF, GOP, seed=STD_SEED + k, standard=True)
+
+
+def std_qcif_corpus():
+    return build_corpus(*QCIF, GOP, seed=STD_QCIF_SEED, standard=True)
+
+
+def is_standard(name: str) -> bool:
+    """Whether the digest sequence `name` is standard H.263 (decoded with
+    `DecoderOption.NONE`) rather than Sorenson."""
+    return name[0] in "sud"
+
+
 def fixture_frames(flv_path) -> list:
     """The picture payloads of an FLV file."""
     return [t.payload for t in iter_flv_video_tags(Path(flv_path).read_bytes())]
@@ -174,6 +327,11 @@ def reference_sequences(cif_fixture_flv) -> dict:
         seqs[f"c{k}"] = (*CIF, cif_corpus(k))
     for k in range(N_QCIF_CORPORA):
         seqs[f"q{k}"] = (*QCIF, qcif_corpus(k))
+    for k in range(N_STD_CORPORA):
+        seqs[f"s{k}"] = (*CIF, std_corpus(k))
+    seqs["sq0"] = (*QCIF, std_qcif_corpus())
+    seqs["u0"] = (*CIF, umv_corpus(*CIF, GOP))
+    seqs["d0"] = (*QCIF, d3_corpus(*QCIF, GOP))
     return seqs
 
 

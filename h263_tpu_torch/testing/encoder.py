@@ -1,10 +1,12 @@
-"""Minimal Sorenson Spark bitstream assembler.
+"""Minimal H.263 / Sorenson Spark bitstream assembler.
 
-A copy of the Sorenson part of `h263_tpu/testing/encoder.py`: builds
-syntactically valid pictures symbol by symbol from the spec VLC tables.
-The decoder encodes its skip frame with it; `chip_smoke.py` and the tests
-build their corpora with it.  `tests/test_torch_tables.py` holds its bytes
-equal to the JAX package's encoder.
+A copy of `h263_tpu/testing/encoder.py`: builds syntactically valid
+pictures symbol by symbol from the spec VLC tables, Sorenson pictures and
+standard ones (plain PTYPE for the CIF family, PLUSPTYPE + OPPTYPE + CPFMT
+for custom sizes).  The decoders encode their skip frames with it;
+`chip_smoke.py` and the tests build their corpora with it.
+`tests/test_torch_tables.py` holds its bytes equal to the JAX package's
+encoder.
 """
 
 from __future__ import annotations
@@ -264,3 +266,76 @@ def encode_sorenson_picture(width: int, height: int, picture_type: PictureTypeCo
         encode_macroblock(w, mb, picture_type, version)
 
     return w.to_bytes(pad_bit)
+
+
+_STANDARD_FORMAT_BITS = {
+    (128, 96): 1,
+    (176, 144): 2,
+    (352, 288): 3,
+    (704, 576): 4,
+    (1408, 1152): 5,
+}
+
+
+def encode_standard_picture(width: int, height: int, picture_type: PictureTypeCode,
+                            macroblocks: Sequence[MBSpec], quantizer: int = 8,
+                            temporal_reference: int = 0,
+                            umv: bool = False) -> bytes:
+    """Assemble a standard (non-Sorenson) H.263 picture.
+
+    CIF-family dimensions get a plain PTYPE header; any other (multiple-
+    of-4) dimensions get a self-contained PLUSPTYPE + OPPTYPE + CPFMT
+    header (custom picture format) — needed e.g. for skip frames in
+    custom-format serving buckets.
+
+    Parity note: the reference maps PTYPE bit 9 SET to an I-frame
+    (picture.rs:57-61), so this encoder emits the same convention.
+    """
+    fmt_bits = _STANDARD_FORMAT_BITS.get((width, height))
+    w = BitWriter()
+    w.write_bits(1, 17)                   # PSC
+    w.write_bits(0, 5)                    # GN=0
+    w.write_bits(temporal_reference & 0xFF, 8)
+    w.write_code("10")                    # PTYPE prefix
+    w.write_code("000")                   # split/doc/freeze off
+    if fmt_bits is not None:
+        w.write_bits(fmt_bits, 3)
+        w.write_bits(1 if picture_type is PictureTypeCode.I_FRAME else 0, 1)
+        w.write_bits(1 if umv else 0, 1)  # UMV (Annex D)
+        w.write_bits(0, 1)                # SAC off
+        w.write_bits(0, 1)                # AP off
+        w.write_bits(0, 1)                # not PB
+        w.write_bits(quantizer, 5)
+        w.write_bits(0, 1)                # CPM off
+        w.write_bits(0, 1)                # PEI end
+    else:
+        if width % 4 or height % 4 or not (
+                4 <= width <= 2044 and 4 <= height <= 1020):
+            raise ValueError(
+                f"custom standard format needs multiple-of-4 dims within "
+                f"CPFMT range, got {width}x{height}")
+        w.write_code("111")               # source format 7 => PLUSPTYPE
+        w.write_code("001")               # UFEP: OPPTYPE present
+        w.write_code("110")               # OPPTYPE fmt = custom (CPFMT)
+        w.write_bits(0, 1)                # custom PCF off
+        w.write_bits(1 if umv else 0, 1)  # UMV
+        w.write_bits(0, 9)                # other OPPTYPE options off
+        w.write_code("1000")              # mandatory tail
+        w.write_code("000" if picture_type is PictureTypeCode.I_FRAME
+                     else "001")          # MPPTYPE picture type
+        w.write_code("000")               # rprp/rru/rounding off
+        w.write_code("001")               # mandatory tail
+        w.write_bits(0, 1)                # CPM off
+        # CPFMT: PAR=0001 (square), PWI, '1', PHI
+        w.write_bits(0b0001, 4)
+        w.write_bits(width // 4 - 1, 9)
+        w.write_bits(1, 1)
+        w.write_bits(height // 4, 9)
+        if umv:
+            w.write_bits(1, 1)            # UUI: '1' => extended range
+        w.write_bits(quantizer, 5)
+        w.write_bits(0, 1)                # PEI end
+
+    for mb in macroblocks:
+        encode_macroblock(w, mb, picture_type, None)
+    return w.to_bytes()

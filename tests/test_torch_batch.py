@@ -344,8 +344,10 @@ def test_dense_host_classes_equal_derived_classes():
 
 
 def test_options():
-    with pytest.raises(ValueError):
-        BatchedStreamDecoder(2, 48, 32, DecoderOption.NONE, device="cpu")
+    # Standard streams are served, with a skip frame of their own flavour.
+    std = BatchedStreamDecoder(2, 48, 32, DecoderOption.NONE, device="cpu")
+    assert std.skip_frame_bytes() != BatchedStreamDecoder(
+        2, 48, 32, device="cpu").skip_frame_bytes()
     with pytest.raises(ValueError):
         BatchedStreamDecoder(2, 48, 32, device="cpu").decode_step(
             [b"", b""], transport="d24")

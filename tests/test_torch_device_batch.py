@@ -177,5 +177,7 @@ def test_cuda_device_raises_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceFrontendDecoder(2, 48, 32, device="cuda")
+    # A standard decoder has no window (its headers chain on the host).
     with pytest.raises(ValueError):
-        DeviceFrontendDecoder(2, 48, 32, DecoderOption.NONE, device="cpu")
+        DeviceFrontendDecoder(2, 48, 32, DecoderOption.NONE,
+                              device="cpu").decode_steps([[None, None]])

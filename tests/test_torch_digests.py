@@ -3,16 +3,19 @@ against, recomputed from the JAX package's numpy reference decoder.
 
 `h263_tpu_torch/testdata/reference_digests.json` holds, for every stream of
 `h263_tpu_torch.testing.corpora.reference_sequences` and every frame, the
-SHA-256 of the decoded planes and of the deblocked BT.601 RGBA.  The card's
-machine has no JAX, so chip_smoke reads this file instead of running the
-reference decoder; this test keeps the file tied to the reference.
+SHA-256 of the decoded planes and of the deblocked BT.601 RGBA (Sorenson
+streams decoded as Sorenson Spark, the standard ones `s{k}`, `sq0`, `u0`
+and `d0` with `DecoderOption.NONE`).  The card's machine has no JAX, so
+chip_smoke reads this file instead of running the reference decoder; this
+test keeps the file tied to the reference.
 
 The numpy decoder takes ~0.5 s a CIF frame here (its motion compensation is
 a Python loop per pixel), ~70 s for all 16 CIF corpora.  So a run recomputes
-the fixture, the FMA sequence, c0 and q0, and one more CIF and QCIF corpus
-that change with the day: every corpus is recomputed within 15 days, and
-chip_smoke holds the port against every one on each run.  To recompute all
-of them, or write the file anew (after a change to the corpora):
+the fixture, the FMA sequence, c0, q0, s0, sq0, u0 and d0, and one more
+CIF, QCIF and standard CIF corpus that change with the day: every corpus is
+recomputed within 15 days, and chip_smoke holds the port against every one
+on each run.  To recompute all of them, or write the file anew (after a
+change to the corpora):
 
     python tests/test_torch_digests.py --check
     python tests/test_torch_digests.py --write
@@ -38,20 +41,25 @@ from h263_tpu_torch.testing import corpora  # noqa: E402
 FIXTURE = ROOT / "tests" / "fixtures" / "ffmpeg_flv1_cif.flv"
 NAMES = (["fixture", "fma"]
          + [f"c{k}" for k in range(corpora.N_CIF_CORPORA)]
-         + [f"q{k}" for k in range(corpora.N_QCIF_CORPORA)])
+         + [f"q{k}" for k in range(corpora.N_QCIF_CORPORA)]
+         + [f"s{k}" for k in range(corpora.N_STD_CORPORA)]
+         + ["sq0", "u0", "d0"])
 
 
 def of_the_day(kind: str) -> str:
-    """The CIF ("c") or QCIF ("q") corpus, other than the first, that
-    today's run recomputes."""
-    n = {"c": corpora.N_CIF_CORPORA, "q": corpora.N_QCIF_CORPORA}[kind]
+    """The CIF ("c"), QCIF ("q") or standard CIF ("s") corpus, other than
+    the first, that today's run recomputes."""
+    n = {"c": corpora.N_CIF_CORPORA, "q": corpora.N_QCIF_CORPORA,
+         "s": corpora.N_STD_CORPORA}[kind]
     return f"{kind}{1 + datetime.date.today().toordinal() % (n - 1)}"
 
 
-def reference_digests(width, height, frames) -> dict:
+def reference_digests(width, height, frames, standard=False) -> dict:
     """Digests of one stream through the numpy reference decoder: planes
     per frame, and RGBA deblocked at the frame's own strength."""
-    dec = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM, backend="numpy")
+    dec = H263Decoder(DecoderOption.NONE if standard
+                      else DecoderOption.SORENSON_SPARK_BITSTREAM,
+                      backend="numpy")
     planes, rgba = [], []
     for f in frames:
         pic = dec.decode_next_picture(f)
@@ -82,13 +90,16 @@ def test_digest_file_names_every_sequence(sequences, committed):
 
 
 @pytest.mark.parametrize("name", ["fixture", "fma", "c0", "q0",
-                                  "cif-of-the-day", "qcif-of-the-day"])
+                                  "cif-of-the-day", "qcif-of-the-day",
+                                  "s0", "sq0", "u0", "d0",
+                                  "std-of-the-day"])
 def test_digests_match_the_numpy_reference_decoder(name, sequences,
                                                    committed):
     if name.endswith("-of-the-day"):
         name = of_the_day(name[0])
     w, h, frames = sequences[name]
-    assert reference_digests(w, h, frames) == committed[name], name
+    assert reference_digests(w, h, frames, corpora.is_standard(name)) == \
+        committed[name], name
 
 
 def test_digests_change_with_one_pixel():
@@ -109,13 +120,15 @@ def main(argv) -> int:
     if argv[1] == "--check":
         committed = corpora.load_digests()
         bad = [name for name in NAMES
-               if reference_digests(*seqs[name]) != committed.get(name)]
+               if reference_digests(*seqs[name], corpora.is_standard(name))
+               != committed.get(name)]
         print(f"{len(NAMES) - len(bad)} of {len(NAMES)} sequences match; "
               f"differ: {bad}")
         return 1 if bad else 0
     out = {"format": "sha256 of the numpy reference decoder's planes (y, cb,"
                      " cr with shapes) and deblocked BT.601 RGBA per frame",
-           "sequences": {name: reference_digests(*seqs[name])
+           "sequences": {name: reference_digests(*seqs[name],
+                                                 corpora.is_standard(name))
                          for name in NAMES}}
     corpora.DIGESTS.parent.mkdir(parents=True, exist_ok=True)
     corpora.DIGESTS.write_text(json.dumps(out, indent=1) + "\n")

@@ -528,3 +528,93 @@ def test_batched_pipeline_makes_no_synchronising_call(cuda):
         torch.cuda.set_sync_debug_mode("default")
     for g, w in zip(got, want):
         assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+# -- standard H.263 and the front-end switch ----------------------------------
+
+def _std_streams(dims, n):
+    from h263_tpu_torch.testing.corpora import build_corpus, d3_corpus
+
+    streams = [build_corpus(*dims, n, seed=1600 + i, standard=True)
+               for i in range(2)] + [d3_corpus(*dims, n, seed=1610)]
+    cut = list(build_corpus(*dims, n, seed=1620, standard=True))
+    cut[2] = cut[2][:len(cut[2]) // 2]           # cut after its header
+    return streams + [cut]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(48, 32), (128, 96)])
+def test_cuda_standard_decoder_matches_cpu_decoder(cuda, dims):
+    """DeviceFrontendDecoder(DecoderOption.NONE): custom sizes (PLUSPTYPE
+    + CPFMT, table-D.3 MVDs) and a plain-PTYPE size, a cut lane, a masked
+    step; planes, statuses and RGBA on the card equal the CPU's."""
+    from h263_tpu_torch.types import DecoderOption
+
+    streams = _std_streams(dims, 4)
+    decs = [DeviceFrontendDecoder(4, *dims, DecoderOption.NONE, device=d)
+            for d in ("cuda", "cpu")]
+    before = automaton_cuda.launches
+    for t in range(4):
+        bufs = [s[t] for s in streams]
+        mask = [True, t != 1, True, True]
+        outs = [d.decode_step(bufs, mask=mask) for d in decs]
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+        np.testing.assert_array_equal(decs[0].fetch_status(),
+                                      decs[1].fetch_status())
+    assert automaton_cuda.launches == before + 4
+    np.testing.assert_array_equal(
+        decs[0].present_rgba(deblock=True).cpu().numpy(),
+        decs[1].present_rgba(deblock=True).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(48, 32), (128, 96)])
+def test_cuda_standard_batched_decoder_matches_cpu_decoder(cuda, dims):
+    """BatchedStreamDecoder(DecoderOption.NONE) on the card and the CPU:
+    the native plain-PTYPE parse (128x96) and the Python header replay
+    (PLUSPTYPE at 48x32), a masked slot, a PackOverflow step (small
+    pack_cap); the copies' readings come from CUDA events."""
+    from h263_tpu_torch.types import DecoderOption
+
+    streams = _std_streams(dims, 4)[:3]
+    decs = [BatchedStreamDecoder(3, *dims, DecoderOption.NONE, device=d)
+            for d in ("cuda", "cpu")]
+    small = [BatchedStreamDecoder(3, *dims, DecoderOption.NONE, pack_cap=16,
+                                  device=d) for d in ("cuda", "cpu")]
+    before = d24_cuda.launches
+    for t in range(4):
+        bufs = [s[t] for s in streams]
+        mask = [True, t != 2, True]
+        for pair in (decs, small):
+            outs = [d.decode_step(bufs, mask=mask) for d in pair]
+            for a, b in zip(*outs):
+                np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    assert d24_cuda.launches >= before + 4
+    torch.cuda.synchronize()
+    decs[0].decode_step([s[3] for s in streams])
+    assert decs[0].last_transfer_s > 0
+    assert decs[0].last_transfer_bytes == sum(
+        t.numel() * t.element_size() for t in (
+            decs[0]._packed[0].rows_t, decs[0]._packed[0].mvs_t,
+            decs[0]._packed[0].inter_t))
+
+
+@pytest.mark.gpu
+def test_cuda_switched_pool_matches_cpu_switched_pool(cuda):
+    """A Sorenson host pool switched to the device front-end mid-GOP, on
+    the card and on the CPU: every step's planes equal."""
+    pools = [StreamPool(frontend="host"),
+             StreamPool(frontend="host", device="cpu")]
+    a, b = rich_gop(1700, n=5), rich_gop(1701, 64, 48, n=5)
+    for p in pools:
+        p.add_stream("a", 48, 32)
+        p.add_stream("b", 64, 48)
+    for t in range(5):
+        if t == 2:
+            for p in pools:
+                p.switch_frontend("device")
+        outs = [p.decode_step({"a": a[t], "b": b[t]}) for p in pools]
+        for sid in ("a", "b"):
+            for x, y in zip(outs[0][sid], outs[1][sid]):
+                np.testing.assert_array_equal(x, y, err_msg=f"{t} {sid}")

@@ -11,9 +11,15 @@ bucket growth, absent streams, rebucketing on an I-frame, refusal on a
 P-frame, at an unbounded size and on a garbage body, error isolation across
 buckets, unregistered ids; for host pools also the per-stream header state
 and `decode_steps` as sequential steps; and rebucket I-frames fuzzed (cut,
-byte-flipped) through both front-ends.  Small dims (48x32 and 64x48) and
-few bucket sizes keep the JAX side's compiles few; `unroll=1` only shortens
-them.
+byte-flipped) through both front-ends.  Standard H.263 pools
+(`DecoderOption.NONE`) on both front-ends: churn, growth, absence, a
+rebucket that carries UMV, a refused one, custom sizes, windows as steps,
+the dims probe against the JAX probe, and fuzzed standard rebucket frames
+(clean, cut, byte-flipped, PLUSPTYPE/CPFMT-mangled).  Sorenson host pools
+switched to the device front-end mid-GOP, by hand and by the rate
+trigger fed synthetic readings, against the JAX pool's switch.  Small dims
+(48x32, 64x48, 128x96 and 176x144) and few bucket sizes keep the JAX
+side's compiles few; `unroll=1` only shortens them.
 """
 
 import numpy as np
@@ -22,15 +28,21 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import h263_tpu.parallel.pool as j_pool  # noqa: E402
 from h263_tpu.parallel.pool import StreamPool as JaxPool  # noqa: E402
+from h263_tpu.testing import fuzz  # noqa: E402
 from h263_tpu.types import DecoderOption as JaxOption  # noqa: E402
 from h263_tpu.types import H263Error as JaxH263Error  # noqa: E402
+from h263_tpu_torch.parallel import pool as t_pool  # noqa: E402
 from h263_tpu_torch.parallel.pool import StreamPool  # noqa: E402
+from h263_tpu_torch.testing import corpora as C  # noqa: E402
 from h263_tpu_torch.testing.encoder import (  # noqa: E402
     BitWriter,
     MBSpec,
     encode_sorenson_picture,
+    encode_standard_picture,
 )
+from h263_tpu_torch.utils import trace  # noqa: E402
 from h263_tpu_torch.types import (  # noqa: E402
     DecoderOption,
     H263Error,
@@ -87,14 +99,19 @@ def _picture_fields(pic):
 
 
 class Twin:
-    """The JAX pool and the port's pool driven alike and compared."""
+    """The JAX pool and the port's pool driven alike and compared; with
+    `standard`, pools of standard H.263 streams."""
 
-    def __init__(self, frontend="device", **kw):
-        extra = {"unroll": 1} if frontend == "device" else {}
-        self.frontend = frontend
-        self.j = JaxPool(JaxOption.SORENSON_SPARK_BITSTREAM,
-                         frontend=frontend, **extra, **kw)
-        self.t = StreamPool(frontend=frontend, device="cpu", **kw)
+    def __init__(self, frontend="device", standard=False, **kw):
+        # The JAX pool passes each decoder class the arguments it takes,
+        # so `unroll` reaches device buckets only (after a switch too).
+        extra = {"unroll": 1}
+        self.standard = standard
+        jopt, topt = ((JaxOption.NONE, DecoderOption.NONE) if standard else
+                      (JaxOption.SORENSON_SPARK_BITSTREAM,
+                       DecoderOption.SORENSON_SPARK_BITSTREAM))
+        self.j = JaxPool(jopt, frontend=frontend, **extra, **kw)
+        self.t = StreamPool(topt, frontend=frontend, device="cpu", **kw)
 
     def add(self, sid, dims):
         self.j.add_stream(sid, *dims)
@@ -126,6 +143,7 @@ class Twin:
         return res[1] if errs[1] is None else errs[1]
 
     def check_state(self):
+        assert self.j.frontend == self.t.frontend
         assert self.j._dims == self.t._dims
         assert self.j._pending == self.t._pending
         assert list(self.j._buckets) == list(self.t._buckets)
@@ -137,8 +155,13 @@ class Twin:
                 np.testing.assert_array_equal(
                     _np(getattr(tb.dec, name)), _np(getattr(jb.dec, name)),
                     err_msg=f"{key} {name}")
-            if self.frontend == "host":
-                assert tb.dec._mv_full == jb.dec._mv_full
+            if self.t.frontend == "host":
+                if self.standard:
+                    # The port's standard rows ship full MVs from the start.
+                    np.testing.assert_array_equal(tb.dec._std_prev_fmt,
+                                                  jb.dec._std_prev_fmt)
+                else:
+                    assert tb.dec._mv_full == jb.dec._mv_full
                 for i, (a, b) in enumerate(zip(tb.dec.states,
                                                jb.dec.states)):
                     assert (int(a.running_options), a.has_reference,
@@ -146,6 +169,10 @@ class Twin:
                         int(b.running_options), b.has_reference,
                         _picture_fields(b.last_header)), (key, i)
                 continue
+            assert [int(r) for r in tb.dec._running] == \
+                [int(r) for r in jb.dec._running], key
+            assert [_picture_fields(p) for p in tb.dec._pictures] == \
+                [_picture_fields(p) for p in jb.dec._pictures], key
             np.testing.assert_array_equal(tb.dec._last_quant,
                                           jb.dec._last_quant)
             np.testing.assert_array_equal(tb.dec._last_deblock,
@@ -290,8 +317,11 @@ def test_pool_options():
         StreamPool(frontend="automaton", device="cpu")
     assert StreamPool(device="cpu").frontend == "device"
     assert StreamPool(frontend="host", device="cpu").frontend == "host"
-    with pytest.raises(ValueError):
-        StreamPool(DecoderOption.NONE, device="cpu")
+    assert StreamPool(DecoderOption.NONE, device="cpu").decoder_options \
+        == DecoderOption.NONE
+    with pytest.raises(ValueError):         # the trigger: Sorenson only
+        StreamPool(DecoderOption.NONE, frontend="host", device="cpu",
+                   adaptive_frontend=True)
     if not torch.cuda.is_available():
         pool = StreamPool()                 # device="cuda" by default
         pool.add_stream("a", *A)
@@ -434,3 +464,306 @@ def test_fuzzed_rebucket_frames_decide_alike(frontend):
             assert tw.t._dims["s"] == A
     assert 3 <= moved < 10              # accepted and refused frames both
     tw.present()
+
+
+# -- standard H.263 pools ------------------------------------------------------
+
+SQ, QC = (128, 96), (176, 144)   # plain PTYPE sizes
+CU, CU2 = (48, 32), (64, 48)     # custom sizes (PLUSPTYPE + CPFMT)
+UMV = int(t_pool.PictureOption.UNRESTRICTED_MOTION_VECTORS)
+# A transfer cap that keeps the JAX device buckets' payload ladder at two
+# rungs (so few compiles); every frame here fits it.
+STD_CAP = 2048
+
+
+def std_gop(seed, dims, n=4, umv=False):
+    """Light standard pictures (short lanes keep the CPU automatons quick):
+    plain PTYPE at a CIF-family size, PLUSPTYPE + OPPTYPE + CPFMT at a
+    custom one; an intra-DC I-frame, then sparse P-frames with MVs up to
+    +-14 half-pels and quantizers that change.  With `umv` the I-frame is
+    a PLUSPTYPE picture whose OPPTYPE sets UMV, which the plain-PTYPE
+    P-frames carry."""
+    w, h = dims
+    rng = np.random.default_rng(seed)
+    nmb = (-(-w // 16)) * (-(-h // 16))
+    mbs = [MBSpec(kind="intra", intradc=[8 * int(rng.integers(1, 128))] * 6)
+           for _ in range(nmb)]
+    out = [C.plusptype_picture(w, h, PictureTypeCode.I_FRAME, mbs, umv=True,
+                               quantizer=8, temporal_reference=0) if umv
+           else encode_standard_picture(w, h, PictureTypeCode.I_FRAME, mbs)]
+    for tr in range(1, n):
+        mbs = [MBSpec(kind="uncoded") if rng.random() < 0.6 else MBSpec(
+            kind="inter", mvd=[(int(rng.integers(-14, 15)),
+                                int(rng.integers(-14, 15)))],
+            blocks=[[(0, int(rng.integers(1, 9)))], [], [], [], [], []])
+            for _ in range(nmb)]
+        out.append(encode_standard_picture(
+            w, h, PictureTypeCode.P_FRAME, mbs, temporal_reference=tr,
+            quantizer=int(rng.integers(1, 32))))
+    return out
+
+
+@pytest.mark.parametrize("frontend", ["device", "host"])
+def test_standard_pool_churn_rebucket_and_carried_options(frontend):
+    """Host pools: plain-PTYPE streams (SQCIF, moving to QCIF), a stream
+    whose PLUSPTYPE I-frame sets UMV and whose plain-PTYPE P-frames carry
+    it, and a custom-size stream.  Device pools, whose plain automaton is
+    slow on the CPU: custom sizes (48x32, moving to 64x48), the UMV
+    stream's pictures PLUSPTYPE with table-D.3 MVDs.  Then an absent
+    stream, a join that grows the bucket, a leave and a recycled slot.
+    The UMV stream's I-frame at the other size is refused as the reference
+    refuses any change of format against a stream's last picture
+    (UnimplementedDecoding, its state kept); a joiner with no picture yet
+    moves on an I-frame (for plain PTYPE, the probe says "changed");
+    another joiner's P-frame at the other size is refused; and running
+    options seeded into a joined slot carry into the new bucket."""
+    tw = Twin(frontend, standard=True, max_frame_bytes=STD_CAP)
+    home, away = (SQ, QC) if frontend == "host" else (CU, CU2)
+    SQ_, QC_ = home, away
+    a, b, c = (std_gop(seed, home, n=5) for seed in (1, 2, 3))
+    u = (std_gop(4, home, n=5, umv=True) if frontend == "host"
+         else C.d3_corpus(*home, 5, seed=4))
+    q = std_gop(5, away, n=3)
+    streams = (("a", home), ("b", home), ("u", home))
+    if frontend == "host":
+        streams += (("x", CU),)
+    x = std_gop(6, CU, n=5)
+    for sid, dims in streams:
+        tw.add(sid, dims)
+
+    def feed(t, **extra):
+        out = {"a": a[t], "u": u[t], **extra}
+        if frontend == "host":
+            out["x"] = x[t]
+        return out
+    tw.step(feed(0, b=b[0]))
+    tw.add("c", SQ_)                            # grows 3 -> 6
+    tw.step(feed(1, c=c[0]))                    # b absent
+    tw.step(feed(2, b=b[1], c=c[1]))
+    tw.remove("b")
+    tw.add("d", SQ_)                            # recycles b's slot
+    if frontend == "host":
+        assert t_pool._sniff_standard_probe(q[0], SQ) == "changed"
+    err = tw.step(feed(3, c=c[2], u=q[0], d=q[0]))
+    assert type(err).__name__ == "UnimplementedDecoding"
+    assert tw.t._dims["u"] == SQ_ and tw.t._dims["d"] == QC_
+    tw.add("e", SQ_)
+    err = tw.step({"a": a[3], "e": q[1], "d": q[1]})
+    assert type(err).__name__ == "PictureFormatInvalid"
+    # Running options seeded into a joined slot (as a rebucket seeds
+    # them) move with the stream when it changes size.
+    tw.add("f", SQ_)
+    for pool in (tw.j, tw.t):
+        bucket = pool._buckets[SQ_]
+        slot = bucket.slots["f"]
+        if frontend == "host":
+            bucket.dec.states[slot].running_options = type(
+                bucket.dec.states[slot].running_options)(UMV)
+        else:
+            bucket.dec._running[slot] = type(bucket.dec._running[slot])(UMV)
+    tw.step(feed(4, c=c[3], f=std_gop(7, QC_, n=1)[0], d=q[2]))
+    assert tw.t._dims["f"] == QC_
+    tw.present()
+
+
+def test_standard_device_pool_windows_are_steps():
+    tw = Twin("device", standard=True)
+    fa, fb = std_gop(11, CU, n=4), std_gop(12, CU, n=4)
+    tw.add("a", CU)
+    tw.add("b", CU)
+    window = [{"a": fa[t], "b": fb[t]} for t in range(4)]
+    del window[1]["b"]
+    before = trace.get_counters().get("pool_window_fallbacks", 0)
+    outs = [tw.j.decode_steps(window), tw.t.decode_steps(window)]
+    assert trace.get_counters()["pool_window_fallbacks"] == before + 1
+    tw.check_state()
+    for t, feed in enumerate(window):
+        for sid in feed:
+            for x, y in zip(outs[0][t][sid], outs[1][t][sid]):
+                np.testing.assert_array_equal(y, x, err_msg=f"{t} {sid}")
+
+
+def _probe_cases():
+    """Headers of every kind the probe meets: the cases of
+    tests/test_pool.py's probe test, the standard corpora, PLUSPTYPE
+    recipes, the fuzz corpus's standard frames and their mutants, cut
+    headers and Sorenson ones."""
+    I_, P_ = PictureTypeCode.I_FRAME, PictureTypeCode.P_FRAME
+    cases = [std_gop(21, dims, n=2)[k] for dims in (SQ, QC, (352, 288), CU)
+             for k in (0, 1)]
+    for dims in (SQ, QC, (352, 288), CU, (64, 48)):
+        for ptype in (I_, P_):
+            for kw in (dict(), dict(umv=True), dict(ufep=False),
+                       dict(custom=True), dict(mq=True)):
+                cases.append(C.plusptype_picture(*dims, ptype, **kw))
+    rng = np.random.default_rng(22)
+    for _ in range(20):
+        base = fuzz._rand_frame(rng, *SQ, flavor="standard")
+        cases.append(base)
+        for _ in range(5):
+            cases.append(fuzz._mutate(
+                rng, base,
+                lambda: fuzz._rand_frame(rng, *SQ, flavor="standard")))
+    cases += [f[:k] for f in cases[:12] for k in (0, 3, 7, 8, 9)]
+    cases += gop(23, A, n=2) + [bytes(rng.integers(0, 256, 12,
+                                                   dtype=np.uint8))
+                                for _ in range(10)]
+    return cases
+
+
+def test_standard_probe_matches_the_jax_probe():
+    """The port's probe answers as the JAX one on every header, and never
+    "unchanged" where the full header parse names other dims."""
+    from h263_tpu.bitio import BitReader as JaxReader
+    from h263_tpu.parser.picture import decode_picture as j_decode
+
+    n_unchanged = 0
+    for buf in _probe_cases():
+        try:
+            pic = j_decode(JaxReader(buf), JaxOption.NONE, None)
+            dims = pic.format.width_and_height() if pic and pic.format \
+                else None
+        except Exception:
+            dims = None
+        for cur in (SQ, QC, (352, 288), CU, (120, 90)):
+            got = t_pool._sniff_standard_probe(buf, cur)
+            assert got == j_pool._sniff_standard_probe(buf, cur), \
+                (buf.hex()[:24], cur)
+            if got == "unchanged":
+                n_unchanged += 1
+                assert dims is None or dims == cur
+    assert n_unchanged > 20
+    assert t_pool._STD_FMT_DIMS == j_pool._STD_FMT_DIMS
+
+
+def _fuzzed_standard_rebucket_frames(seed, n, dims=QC):
+    """I-frames at `dims`: clean, cut at random bytes, byte-flipped, and
+    PLUSPTYPE (+ CPFMT) pictures with header bits flipped."""
+    rng = np.random.default_rng(seed)
+    nmb = (-(-dims[0] // 16)) * (-(-dims[1] // 16))
+    out = []
+    for k in range(n):
+        kind = k % 4
+        if kind == 3:
+            mbs = [MBSpec(kind="intra", intradc=[8 * int(rng.integers(1, 120))]
+                          * 6) for _ in range(nmb)]
+            f = bytearray(C.plusptype_picture(*dims, PictureTypeCode.I_FRAME,
+                                              mbs, custom=bool(k % 8 == 3)))
+            for _ in range(int(rng.integers(1, 3))):
+                f[int(rng.integers(3, 11))] ^= 1 << int(rng.integers(0, 8))
+            out.append(bytes(f))
+            continue
+        f = std_gop(seed * 100 + k, dims, n=1)[0]
+        if kind == 1:
+            f = f[:int(rng.integers(4, len(f)))]
+        elif kind == 2:
+            b = bytearray(f)
+            b[int(rng.integers(4, len(b)))] ^= int(rng.integers(1, 256))
+            f = bytes(b)
+        out.append(f)
+    return out
+
+
+@pytest.mark.parametrize("frontend", ["device", "host"])
+def test_fuzzed_standard_rebucket_frames_decide_alike(frontend):
+    """Fuzzed rebucket I-frames, each the first frame of a stream that
+    joined at another size (a stream with a picture cannot change format
+    in the reference): the port's pool and the JAX pool accept or refuse
+    each alike (the same error class) and hold equal planes and state
+    after."""
+    tw = Twin(frontend, standard=True, max_frame_bytes=STD_CAP)
+    home, away = (SQ, QC) if frontend == "host" else (CU, CU2)
+    other = std_gop(32, home, n=14)
+    tw.add("o", home)
+    tw.step({"o": other[0]})
+    moved = 0
+    for k, f in enumerate(_fuzzed_standard_rebucket_frames(33, 12, away)):
+        sid = f"s{k}"
+        tw.add(sid, home)
+        tw.step({sid: f, "o": other[1 + k]})
+        moved += tw.t._dims[sid] == away
+        tw.remove(sid)
+    assert 2 <= moved < 12
+    tw.present()
+
+
+def test_rebucket_validation_and_sniff_agree_on_fuzzed_standard_frames():
+    """`_validate_rebucket_frame` and `_sniff` of the port decide as the
+    JAX pool's on every fuzzed frame, whatever the parsers raise inside
+    (the JAX pool refuses a frame on any exception there)."""
+    frames = (_fuzzed_standard_rebucket_frames(41, 40)
+              + _fuzzed_standard_rebucket_frames(42, 20, CU2) + _probe_cases())
+    jp = JaxPool(JaxOption.NONE, frontend="device")
+    tp = StreamPool(DecoderOption.NONE, device="cpu")
+    for p in (jp, tp):
+        p.add_stream("s", *SQ)
+    for buf in frames:
+        for dims in (QC, SQ):
+            assert tp._validate_rebucket_frame(buf, *dims) == \
+                jp._validate_rebucket_frame(buf, *dims), buf.hex()[:24]
+        assert tp._sniff("s", buf) == jp._sniff("s", buf), buf.hex()[:24]
+
+
+# -- the front-end switch ------------------------------------------------------
+
+def test_switch_frontend_mid_gop_matches_jax():
+    """A Sorenson host pool switched to the device front-end after its
+    third step, beside the JAX pool switched alike: equal planes, the
+    moved header state and RGBA at every later step."""
+    tw = Twin("host")
+    fa, fb = gop(91, A, n=6), gop(92, A, n=6)
+    tw.add("a", A)
+    tw.add("b", A)
+    for t in range(3):
+        tw.step({"a": fa[t], "b": fb[t]})
+    before = trace.get_counters().get("pool_frontend_switches", 0)
+    tw.j.switch_frontend("device")
+    tw.t.switch_frontend("device")
+    assert trace.get_counters()["pool_frontend_switches"] == before + 1
+    assert tw.t.frontend == "device"
+    tw.check_state()
+    tw.present()
+    tw.step({"a": fa[3]})                       # b absent
+    tw.step({"a": fa[4], "b": fb[3]})
+    tw.add("c", A)                              # a device bucket grows
+    tw.step({"a": fa[5], "b": fb[4], "c": gop(94, A, n=1)[0]})
+    tw.present()
+    tw.t.switch_frontend("device")              # already there: no-op
+    with pytest.raises(ValueError):
+        tw.t.switch_frontend("host")
+    std = StreamPool(DecoderOption.NONE, frontend="host", device="cpu")
+    with pytest.raises(ValueError):
+        std.switch_frontend("device")
+
+
+def test_adaptive_trigger_switches_like_jax():
+    """The rate trigger fed synthetic readings (healthy for 6 steps, then
+    ten times slower): both pools switch at the same step, and every
+    frame before and after equals the JAX pool's."""
+    kw = dict(adaptive_frontend=True, degrade_ratio=4.0, adapt_min_samples=4)
+    tw = Twin("host", **kw)
+    n = 13
+    streams = {"a": gop(101, A, n=n), "b": gop(102, A, n=n),
+               "x": gop(103, B, n=n)}
+    for sid in streams:
+        tw.add(sid, A if sid != "x" else B)
+    clock = {"t": 0}
+
+    def stats(dec):
+        return (1 << 20, 0.001 if clock["t"] < 6 else 0.010)
+    tw.j._transfer_stats_fn = tw.t._transfer_stats_fn = stats
+    switched = []
+    for t in range(n):
+        clock["t"] = t
+        tw.step({sid: f[t] for sid, f in streams.items()})
+        if tw.t.frontend == "device" and not switched:
+            switched.append(t)
+    assert switched and 6 <= switched[0] < n - 1
+    assert tw.t._bw_samples == tw.j._bw_samples
+    assert tw.t._bw_best == tw.j._bw_best
+    tw.present()
+    # Readings too small to estimate a rate are skipped.
+    p = StreamPool(frontend="host", device="cpu", **kw)
+    p._note_transfer(512, 0.001)
+    p._note_transfer(1 << 20, 0.0)
+    assert p._bw_samples == 0 and p._bw_ema is None

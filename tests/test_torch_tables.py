@@ -208,6 +208,39 @@ def test_encoder_bytes_equal(case, dims, kw):
     assert out[0] == out[1]
 
 
+def test_standard_format_bits_equal():
+    assert t_enc._STANDARD_FORMAT_BITS == j_enc._STANDARD_FORMAT_BITS
+
+
+# Standard escapes are 8-bit: the Sorenson long escape has no standard form.
+@pytest.mark.parametrize("case", [c for c in _CASES
+                                  if c not in ("disposable", "escape_long")])
+@pytest.mark.parametrize("dims,kw", [
+    ((352, 288), {}),                        # plain PTYPE
+    ((128, 96), dict(umv=True, quantizer=3, temporal_reference=300)),
+    ((48, 32), {}),                          # PLUSPTYPE + OPPTYPE + CPFMT
+    ((64, 48), dict(umv=True, quantizer=31)),
+])
+def test_standard_encoder_bytes_equal(case, dims, kw):
+    w, h = dims
+    nmb = (-(-w // 16)) * (-(-h // 16))
+    out = []
+    for enc, types in ((j_enc, j_types), (t_enc, t_types)):
+        code, mbs = _specs(enc, case)
+        ptype = {"I": types.PictureTypeCode.I_FRAME,
+                 "P": types.PictureTypeCode.P_FRAME}[code]
+        out.append(enc.encode_standard_picture(w, h, ptype,
+                                               (mbs * nmb)[:nmb], **kw))
+    assert out[0] == out[1]
+
+
+def test_standard_encoder_refuses_the_same_dims():
+    for enc, types in ((j_enc, j_types), (t_enc, t_types)):
+        with pytest.raises(ValueError):
+            enc.encode_standard_picture(50, 32, types.PictureTypeCode.I_FRAME,
+                                        [])
+
+
 @pytest.mark.parametrize("seed,kw", [
     (0, {}), (1, {}), (2, {}), (900, dict(n=3)),
     (2, dict(width=64, height=48, n=3)), (5, dict(version=0)),
