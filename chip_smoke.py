@@ -105,8 +105,32 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      on phase 8's streams switched to the device front-end after step 3,
      digests every frame, and the H2D readings its rate trigger reads.
 
-The kernels line's launch counts are those of phases 8-12 (each run with
-the counts set to 0 just before it).
+  13. the single-stream decoder, H263Decoder on the card (the reconstruct
+     kernel at S=1, its output at the picture's dims and its reference at
+     the previous picture's; the present kernel at S=1): (a) every stream
+     with reference digests (the fixture, FMA, c*, q*, and the standard
+     s*, sq0, u0, d0 with DecoderOption.NONE), planes and
+     last_picture_rgba(deblock=True) every frame; (b) every ffmpeg fixture
+     (QCIF to 1408x1152) within the repo's documented tolerances of
+     ffmpeg's luma, and every frame torch.equal to
+     DeviceFrontendDecoder(1, w, h) and BatchedStreamDecoder(1, w, h);
+     (c) a stream through every kind of size change (testing/corpora.py
+     `resize_sequence`), each reconstruction held against its plain
+     version on the card and the planes against the CPU decoder's, and
+     hand-made reconstructions across size changes up and down; (d) the
+     decoder saved mid-GOP and resumed, a device and a host pool on phase
+     8's streams saved after three steps and stepped once more, and
+     decode_stream over the CIF fixture in odd-sized chunks, each equal to
+     the uninterrupted decode; (e) `python -m h263_tpu_torch decode`,
+     `info` and `selftest` as subprocesses, the PPMs equal to
+     last_picture_rgba's RGB; (f) per-frame splits, present times,
+     frames/s with and without presentation, the kernel at S=1 against its
+     bytes bound, and peak memory, for the CIF, 720p and 1408x1152
+     fixtures.
+
+The kernels line's launch counts are those of phases 8-12, and of phase
+13's (a)-(c) decoder runs (each run with the counts set to 0 just before
+it).
 
 The oracle is `h263_tpu_torch/testdata/reference_digests.json`: SHA-256
 digests of the numpy reference decoder's planes and deblocked RGBA, which
@@ -2538,6 +2562,526 @@ def phase_switch(torch, streams, golden, digests):
     return launches
 
 
+# -- phase 13: the single-stream decoder -----------------------------------
+
+# name, width, height, luma tolerance, least exact share: the ffmpeg
+# fixtures and the repo's documented tolerances against ffmpeg's decode
+# (tests/test_real_corpus.py:13-17, its CORPUS table).
+FIXTURES = [
+    ("qcif", 176, 144, 1, 0.98), ("cif", 352, 288, 1, 0.98),
+    ("longgop", 176, 144, 2, 0.97), ("motion", 352, 288, 1, 0.98),
+    ("odd", 120, 90, 5, 0.80), ("quant", 176, 144, 2, 0.96),
+    ("scenecut", 176, 144, 2, 0.95), ("p720", 1280, 720, 2, 0.99),
+    ("qcoarse", 176, 144, 2, 0.95), ("qfine", 176, 144, 2, 0.94),
+    ("starved", 352, 288, 2, 0.97), ("cutstorm", 176, 144, 2, 0.95),
+    ("cif16", 1408, 1152, 2, 0.99),
+]
+SINGLE_PATH = ("reconstruct", "present_rgba")
+# Hand-made reconstructions across a size change: (reference luma dims,
+# output luma dims, streams).
+RESIZE_CASES = [((145, 177), (288, 352), 1), ((288, 352), (145, 177), 1),
+                ((22, 36), (58, 72), 4), ((720, 1280), (90, 120), 2),
+                ((90, 120), (720, 1280), 2)]
+
+
+def _fixture(root, name):
+    from h263_tpu_torch.io.flv import iter_flv_video_tags
+
+    fix = os.path.join(root, "tests", "fixtures")
+    with open(os.path.join(fix, f"ffmpeg_flv1_{name}.flv"), "rb") as fh:
+        tags = [t.payload for t in iter_flv_video_tags(fh.read())]
+    golden = np.load(os.path.join(fix, f"ffmpeg_flv1_{name}_golden.npz"))
+    return tags, golden["luma"]
+
+
+class SingleProbe:
+    """Stands in for `decoder.reconstruct.reconstruct_from_dense`, the
+    single decoder's one call of the reconstruct wrapper per frame, while
+    installed: passes every call on and holds its planes against the plain
+    version on the same inputs on the card (a plain version launches no
+    kernel), counting the calls whose reference has other dims."""
+
+    def __init__(self, torch):
+        from h263_tpu_torch.decoder import reconstruct as recon_mod
+
+        self.torch, self.mod = torch, recon_mod
+        self.fn = recon_mod.reconstruct_from_dense
+        self.checked, self.resized = 0, 0
+
+    def __enter__(self):
+        self.mod.reconstruct_from_dense = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.reconstruct_from_dense = self.fn
+
+    def __call__(self, *args, out_hw=None):
+        from h263_tpu_torch.ops.reconstruct import reconstruct_from_dense_plain
+
+        out = self.fn(*args, out_hw=out_hw)
+        if tuple(args[3].shape[1:]) != tuple(out_hw):
+            self.resized += 1
+        want = reconstruct_from_dense_plain(*args, out_hw=out_hw)
+        for name, a, b in zip(("y", "cb", "cr"), out, want):
+            if not self.torch.equal(a, b):
+                fail(f"reconstruct kernel at reference dims "
+                     f"{tuple(args[3].shape[1:])} -> {out_hw}: plane {name} "
+                     f"differs from its plain version")
+        self.checked += 1
+        return out
+
+
+def _planes_equal(torch, got, want, tag):
+    for name, a, b in zip(("y", "cb", "cr"), got, want):
+        if a.shape != b.shape or not torch.equal(a, b.to(a.device)):
+            fail(f"{tag}: plane {name} differs")
+
+
+def single_corpora(torch, streams, digests):
+    """(a) every stream with reference digests through H263Decoder on the
+    card: planes and last_picture_rgba(deblock=True) every frame."""
+    from h263_tpu_torch import DecoderOption, H263Decoder
+    from h263_tpu_torch.testing.corpora import (is_standard, planes_digest,
+                                                rgba_digest)
+
+    n = 0
+    for name in sorted(digests):
+        opts = (DecoderOption.NONE if is_standard(name)
+                else DecoderOption.SORENSON_SPARK_BITSTREAM)
+        dec = H263Decoder(opts, device=DEVICE)
+        for t, buf in enumerate(streams[name][2]):
+            pic = dec.decode_next_picture(buf)
+            y, cb, cr = pic.as_yuv()
+            if planes_digest(y, cb, cr) != digests[name]["planes"][t]:
+                fail(f"single decoder: {name} frame {t} planes differ from "
+                     f"the reference digest")
+            if rgba_digest(dec.last_picture_rgba(deblock=True)) != \
+                    digests[name]["rgba"][t]:
+                fail(f"single decoder: {name} frame {t} RGBA differs from "
+                     f"the reference digest")
+            if name == "fma" and int(y[0, 2]) != (156 if t else 128):
+                fail(f"single decoder: FMA pixel (0,2) is {int(y[0, 2])}")
+            n += 1
+    return n
+
+
+def single_fixtures(torch, root):
+    """(b), the single decoder's half: every ffmpeg fixture through
+    H263Decoder on the card, luma within the documented tolerances of
+    ffmpeg's; returns {name: (tags, [planes on the card])}."""
+    from h263_tpu_torch import DecoderOption, H263Decoder
+
+    out = {}
+    for name, w, h, tol, exact_min in FIXTURES:
+        tags, golden = _fixture(root, name)
+        dec = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM,
+                          device=DEVICE)
+        planes, worst = [], 0
+        for t, buf in enumerate(tags):
+            pic = dec.decode_next_picture(buf)
+            if (pic.width, pic.height) != (w, h):
+                fail(f"{name}: decoded {pic.width}x{pic.height}")
+            planes.append((pic.luma, pic.chroma_b, pic.chroma_r))
+            d = np.abs(pic.as_luma().astype(np.int32)
+                       - golden[t].astype(np.int32))
+            exact = float((d == 0).mean())
+            if d.max() > tol or exact < exact_min:
+                fail(f"single decoder: {name} frame {t} luma outside "
+                     f"ffmpeg's tolerance (max |dY| {int(d.max())}, exact "
+                     f"{exact:.4f})")
+            worst = max(worst, int(d.max()))
+        out[name] = (tags, planes)
+        log(f"single decoder: fixture {name} {w}x{h}, {len(tags)} frames "
+            f"within +-{tol} of ffmpeg (worst {worst})")
+    return out
+
+
+def single_vs_batched(torch, fixtures):
+    """(b), the batched half: each fixture's frames through
+    DeviceFrontendDecoder(1, w, h) and BatchedStreamDecoder(1, w, h);
+    every frame's planes equal the single decoder's (torch.equal)."""
+    from h263_tpu_torch import BatchedStreamDecoder, DeviceFrontendDecoder
+
+    for name, w, h, _, _ in FIXTURES:
+        tags, planes = fixtures[name]
+        cap = max(len(b) for b in tags)
+        decs = {"device": DeviceFrontendDecoder(1, w, h, device=DEVICE,
+                                                max_frame_bytes=cap),
+                "host": BatchedStreamDecoder(1, w, h, device=DEVICE)}
+        for t, buf in enumerate(tags):
+            for kind, dec in decs.items():
+                got = dec.decode_step([buf])
+                _planes_equal(torch, [p[0] for p in got], planes[t],
+                              f"{name} frame {t}: {kind} front-end vs the "
+                              f"single decoder")
+            if int(decs["device"].fetch_status()[0]) != 0:
+                fail(f"{name} frame {t}: the device front-end's lane failed")
+    log(f"single decoder: every frame of {len(FIXTURES)} fixtures equals "
+        f"DeviceFrontendDecoder(1, w, h) and BatchedStreamDecoder(1, w, h) "
+        f"(torch.equal)")
+
+
+def single_resize(torch):
+    """(c) the decoder over every kind of size change, each kernel call
+    held against its plain version on the card, and the planes against
+    the CPU decoder's."""
+    from h263_tpu_torch import DecoderOption, H263Decoder
+    from h263_tpu_torch.testing.corpora import resize_sequence
+
+    gd = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM, device=DEVICE)
+    cd = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM, device="cpu")
+    probe = SingleProbe(torch)
+    for t, buf in enumerate(resize_sequence()):
+        with probe:
+            g = gd.decode_next_picture(buf)
+        c = cd.decode_next_picture(buf)
+        _planes_equal(torch, (g.luma, g.chroma_b, g.chroma_r),
+                      (c.luma, c.chroma_b, c.chroma_r),
+                      f"resize sequence frame {t}: card vs CPU")
+        if not np.array_equal(gd.last_picture_rgba(),
+                              cd.last_picture_rgba()):
+            fail(f"resize sequence frame {t}: RGBA differs")
+    if probe.resized < 5:
+        fail(f"only {probe.resized} reconstructions had a reference of "
+             f"other dims")
+    return probe.checked, probe.resized
+
+
+def resize_kernel_cases(torch, rng):
+    """(c) hand-made inputs across a size change, random MVs reaching past
+    every edge: the kernel equals its plain version on the card."""
+    from h263_tpu_torch.ops import reconstruct_cuda
+    from h263_tpu_torch.ops.reconstruct import reconstruct_from_dense_plain
+
+    err = 0
+    for (rh, rw), (h, w), s in RESIZE_CASES:
+        mbh, mbw = -(-h // 16), -(-w // 16)
+        nblk = 6 * mbh * mbw
+        dense = idct_blocks(s * nblk, rng).reshape(s, nblk, 64)
+        reach = 2 * max(h, w, rh, rw) + 9
+        mvs = rng.integers(-reach, reach + 1, (s, mbh, mbw, 4, 2)).astype(
+            np.int16)
+        near = rng.random((s, mbh, mbw)) < 0.5
+        mvs[near] = rng.integers(-9, 10, mvs[near].shape)
+        inter = rng.random((s, mbh, mbw)) < 0.8
+        refs = [rng.integers(0, 256, (s, *hw), dtype=np.uint8)
+                for hw in plane_shapes(rh, rw)]
+        args = [torch.as_tensor(a).to(DEVICE)
+                for a in (dense, mvs, inter, *refs)]
+        got = reconstruct_cuda.reconstruct_from_dense_cuda(*args,
+                                                           out_hw=(h, w))
+        want = reconstruct_from_dense_plain(*args, out_hw=(h, w))
+        torch.cuda.synchronize()
+        e = max(max_err(torch, a, b) for a, b in zip(got, want))
+        err = max(err, e)
+        if e:
+            fail(f"reconstruct kernel, reference {rw}x{rh} -> {w}x{h}: "
+                 f"max_abs_err {e}")
+    log(f"single decoder: the reconstruct kernel across {len(RESIZE_CASES)} "
+        f"hand-made size changes (up and down, MVs past every edge) equals "
+        f"its plain version (max_abs_err {err})")
+    return err
+
+
+def single_checkpoints(torch, root, streams):
+    """(d) the single decoder saved mid-GOP and resumed on the card; a
+    device pool and a host pool on phase 8's streams saved after three
+    steps and stepped once more; decode_stream over the fixture in
+    odd-sized chunks."""
+    from h263_tpu_torch import DecoderOption, H263Decoder
+    from h263_tpu_torch.io.stream import decode_stream
+    from h263_tpu_torch.parallel.pool import StreamPool
+    from h263_tpu_torch.utils import checkpoint as ck
+
+    tags, _ = _fixture(root, "motion")
+    whole = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM, device=DEVICE)
+    dec = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM, device=DEVICE)
+    for buf in tags[:7]:
+        whole.decode_next_picture(buf)
+        dec.decode_next_picture(buf)
+    blob = ck.save_decoder_state(dec)
+    resumed = ck.load_decoder_state(blob, device=DEVICE)
+    for t, buf in enumerate(tags[7:], start=7):
+        a, b = whole.decode_next_picture(buf), resumed.decode_next_picture(buf)
+        _planes_equal(torch, (b.luma, b.chroma_b, b.chroma_r),
+                      (a.luma, a.chroma_b, a.chroma_r),
+                      f"resumed single decoder, motion frame {t}")
+    if not np.array_equal(whole.last_picture_rgba(),
+                          resumed.last_picture_rgba()):
+        fail("resumed single decoder: RGBA differs")
+    log(f"checkpoint: the single decoder saved after 7 of {len(tags)} "
+        f"frames ({len(blob)} B) resumes on the card equal to an "
+        f"uninterrupted decode")
+
+    seq_of = {f"cif{i}": ("fixture" if i < 4 else "fma" if i < 8
+                          else f"c{i % N_CORPORA}") for i in range(S_MAIN)}
+    seq_of.update({f"qcif{j}": f"q{j % N_QCIF_CORPORA}"
+                   for j in range(S_QCIF)})
+    for frontend in ("device", "host"):
+        pools = [StreamPool(frontend=frontend, device=DEVICE)
+                 for _ in range(2)]
+        for pool in pools:
+            for sid, name in seq_of.items():
+                pool.add_stream(sid, *streams[name][:2])
+            for t in range(3):
+                pool.decode_step({sid: streams[name][2][t]
+                                  for sid, name in seq_of.items()})
+        t0 = time.perf_counter()
+        blob = ck.save_pool_state(pools[1])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = ck.load_pool_state(blob, device=DEVICE)
+        load_s = time.perf_counter() - t0
+        del pools[1]
+        feed = {sid: streams[name][2][3] for sid, name in seq_of.items()}
+        a, b = pools[0].decode_step(feed), resumed.decode_step(feed)
+        for sid in seq_of:
+            _planes_equal(torch, b.device_planes(sid), a.device_planes(sid),
+                          f"resumed {frontend} pool, stream {sid}")
+        log(f"checkpoint: a {frontend} pool of {len(seq_of)} streams saved "
+            f"after 3 steps ({len(blob) / 2**20:.1f} MiB, save "
+            f"{save_s:.2f} s, load {load_s:.2f} s) steps equal to the "
+            f"uninterrupted pool")
+        del pools, resumed, a, b
+
+    raw = b"".join(_fixture(root, "cif")[0])
+    sizes = [1, 7, 333, 4099]
+    chunks, pos, k = [], 0, 0
+    while pos < len(raw):
+        chunks.append(raw[pos:pos + sizes[k % 4]])
+        pos += sizes[k % 4]
+        k += 1
+    one = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM, device=DEVICE)
+    got = list(decode_stream(chunks, H263Decoder(
+        DecoderOption.SORENSON_SPARK_BITSTREAM, device=DEVICE)))
+    tags, _ = _fixture(root, "cif")
+    if len(got) != len(tags):
+        fail(f"decode_stream gave {len(got)} pictures of {len(tags)}")
+    for t, (pic, buf) in enumerate(zip(got, tags)):
+        want = one.decode_next_picture(buf)
+        _planes_equal(torch, (pic.luma, pic.chroma_b, pic.chroma_r),
+                      (want.luma, want.chroma_b, want.chroma_r),
+                      f"decode_stream frame {t}")
+    log(f"stream input: decode_stream over the CIF fixture in "
+        f"{len(chunks)} chunks of {sizes} bytes equals frame-by-frame "
+        f"decoding")
+
+
+def single_cli(torch, root):
+    """(e) python -m h263_tpu_torch decode / info / selftest as
+    subprocesses; the PPMs equal last_picture_rgba's RGB."""
+    import tempfile
+
+    from h263_tpu_torch import DecoderOption, H263Decoder
+
+    flv = os.path.join(root, "tests", "fixtures", "ffmpeg_flv1_cif.flv")
+    tags, _ = _fixture(root, "cif")
+    dec = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM, device=DEVICE)
+    rgb = []
+    for buf in tags:
+        dec.decode_next_picture(buf)
+        rgb.append(dec.last_picture_rgba()[..., :3].tobytes())
+    with tempfile.TemporaryDirectory() as tmp:
+        for argv in (["decode", flv, "-o", tmp, "--device", DEVICE],
+                     ["info", flv], ["selftest", "--device", DEVICE]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "h263_tpu_torch", *argv], cwd=root,
+                capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                fail(f"python -m h263_tpu_torch {argv[0]} exited "
+                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            log(f"cli: {argv[0]} exited 0 in "
+                f"{time.perf_counter() - t0:.1f} s: "
+                f"{proc.stdout.strip().splitlines()[-1]}")
+        ppms = sorted(f for f in os.listdir(tmp) if f.endswith(".ppm"))
+        if len(ppms) != len(tags):
+            fail(f"cli wrote {len(ppms)} PPMs for {len(tags)} frames")
+        for f, want in zip(ppms, rgb):
+            with open(os.path.join(tmp, f), "rb") as fh:
+                data = fh.read()
+            if not data.endswith(want) or \
+                    len(data) != len(b"P6\n352 288\n255\n") + len(want):
+                fail(f"cli: {f} differs from last_picture_rgba's RGB")
+    log(f"cli: {len(ppms)} PPMs equal last_picture_rgba's RGB")
+
+
+def raw_reconstruct_ms(torch, args, out_hw, reps=200):
+    """Device ms per launch of the reconstruct kernel through its C entry
+    point, on a wrapper call's own inputs: no wrapper Python between the
+    launches, so at S=1 the card, not the host, sets the pace."""
+    from h263_tpu_torch import kernels
+    from h263_tpu_torch.ops.idct_cuda import _BASIS
+
+    dense, mvs, inter, ref_y, ref_cb, ref_cr = args
+    s, mbh, mbw = inter.shape
+    h, w = out_hw
+    outs = [torch.empty((s, *hw), dtype=torch.uint8, device=DEVICE)
+            for hw in plane_shapes(h, w)]
+    basis = kernels.device_table("idct_basis", _BASIS, dense.device)
+    fn, stream = kernels.lib().h263_reconstruct, \
+        kernels.stream_handle(dense.device)
+    ptrs = [t.data_ptr() for t in (*args, *outs)]
+    dims = (s, mbh, mbw, h, w, *ref_y.shape[1:])
+
+    def launch():
+        kernels.check(fn(*ptrs, *dims, basis.data_ptr(), stream),
+                      "h263_reconstruct")
+    return cuda_ms(launch, reps)
+
+
+def single_readings(torch, root):
+    """(f) per-frame split, present, loops, the kernel at S=1, peak."""
+    from h263_tpu_torch import DecoderOption, H263Decoder
+    from h263_tpu_torch.decoder import reconstruct as recon_mod
+    from h263_tpu_torch.decoder import state as state_mod
+    from h263_tpu_torch.ops import reconstruct_cuda
+
+    opts = DecoderOption.SORENSON_SPARK_BITSTREAM
+    for name in ("cif", "p720", "cif16"):
+        tags, _ = _fixture(root, name)
+        # The split, per frame of one pass (after a warm pass).
+        dec = H263Decoder(opts, device=DEVICE)
+        for buf in tags:
+            dec.decode_next_picture(buf)
+        dec = H263Decoder(opts, device=DEVICE)
+        marks = {}
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        hdr_fn, parse_fn = state_mod.decode_picture, state_mod.parse_frame_auto
+        rec_fn, pres_fn = (recon_mod.reconstruct_from_dense,
+                           state_mod.present_rgba_batched)
+
+        def timed_hdr(*a):
+            t0 = time.perf_counter()
+            out = hdr_fn(*a)
+            marks["hdr"] = time.perf_counter() - t0
+            return out
+
+        def timed_parse(*a):
+            t0 = time.perf_counter()
+            out = parse_fn(*a)
+            marks["parse"] = time.perf_counter() - t0
+            marks["parsed"] = event()
+            return out
+
+        def timed_rec(*a, **k):
+            marks["k0"] = event()
+            out = rec_fn(*a, **k)
+            marks["k1"] = event()
+            marks["args"] = (a, k)
+            return out
+
+        def timed_present(*a):
+            marks["p0"] = event()
+            out = pres_fn(*a)
+            marks["p1"] = event()
+            return out
+
+        state_mod.decode_picture, state_mod.parse_frame_auto = \
+            timed_hdr, timed_parse
+        recon_mod.reconstruct_from_dense = timed_rec
+        state_mod.present_rgba_batched = timed_present
+        rows, present, p_args = [], [], None
+        try:
+            for t, buf in enumerate(tags):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dec.decode_next_picture(buf)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                stage = marks["parsed"].elapsed_time(marks["k0"])
+                kern = marks["k0"].elapsed_time(marks["k1"])
+                hdr, parse = marks["hdr"] * 1e3, marks["parse"] * 1e3
+                rows.append((wall, hdr, parse, stage, kern,
+                             wall - hdr - parse - stage - kern))
+                if t == len(tags) - 1:
+                    p_args = marks["args"]
+                t0 = time.perf_counter()
+                dec.last_picture_rgba()
+                present.append(((time.perf_counter() - t0) * 1e3,
+                                marks["p0"].elapsed_time(marks["p1"])))
+        finally:
+            state_mod.decode_picture, state_mod.parse_frame_auto = \
+                hdr_fn, parse_fn
+            recon_mod.reconstruct_from_dense = rec_fn
+            state_mod.present_rgba_batched = pres_fn
+        ps = [r for t, r in enumerate(rows) if t]      # P-frames
+        mean = [sum(c) / len(ps) for c in zip(*ps)]
+        log(f"single {name}: frame ms (wall, header, native parse, dense "
+            f"build + H2D, reconstruct wrapper + kernel, rest) I "
+            f"{[round(v, 3) for v in rows[0]]}"
+            f", P mean {[round(v, 3) for v in mean]}, P walls "
+            f"{[round(r[0], 3) for r in ps]}; last_picture_rgba ms (call "
+            f"with D2H, present wrapper + kernel) "
+            f"{[(round(a, 3), round(b, 3)) for a, b in present]}")
+        # Loops: a fresh decoder over the fixture, N passes, decode only
+        # (one synchronise at the end) and with a present every frame.
+        for with_present in (False, True):
+            passes = max(2, 240 // len(tags))
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(passes):
+                dec = H263Decoder(opts, device=DEVICE)
+                for buf in tags:
+                    dec.decode_next_picture(buf)
+                    if with_present:
+                        dec.last_picture_rgba()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            log(f"single {name}: {passes * len(tags) / dt:.1f} frames/s "
+                f"{'with' if with_present else 'without'} presentation "
+                f"({passes} passes of {len(tags)} frames); peak device "
+                f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        # The kernel at S=1 on the last frame's inputs, against its bytes:
+        # launched bare back to back, and through its wrapper.
+        a, k = p_args
+        ms = raw_reconstruct_ms(torch, a, k["out_hw"])
+        wrapped = cuda_ms(lambda: reconstruct_cuda.reconstruct_from_dense_cuda(
+            *a, **k), 200)
+        out_bytes = sum(int(np.prod(s)) for s in plane_shapes(*k["out_hw"]))
+        nbytes = sum(x.numel() * x.element_size() for x in a) + out_bytes
+        log(f"single {name}: reconstruct kernel at S=1 {ms * 1e3:.2f} us "
+            f"a launch ({wrapped * 1e3:.2f} us a call through its wrapper, "
+            f"host-bound) against its bytes bound "
+            f"{bytes_bound_ms(nbytes) * 1e3:.3f} us ({nbytes} B, "
+            f"{a[0].shape[1]} blocks: {ms / bytes_bound_ms(nbytes):.1f}x)")
+
+
+def phase_single(torch, root, streams, digests, rng):
+    """Phase 13: the single-stream decoder (H263Decoder) on the card."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    n = single_corpora(torch, streams, digests)
+    fixtures = single_fixtures(torch, root)
+    checked, resized = single_resize(torch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"single decoder: {n} frames of {len(digests)} corpora equal the "
+        f"reference digests (planes and RGBA); {sum(len(v[0]) for v in fixtures.values())} "
+        f"fixture frames; the resize sequence with {checked} kernel calls "
+        f"held against the plain version, {resized} of them at a reference "
+        f"of other dims; launches {launches}")
+    if min(launches[k] for k in SINGLE_PATH) < 1:
+        fail("a kernel of the single-stream path was not launched")
+    if any(v for k, v in launches.items() if k not in SINGLE_PATH):
+        fail("the single-stream path launched a kernel outside it")
+    single_vs_batched(torch, fixtures)
+    del fixtures
+    err = resize_kernel_cases(torch, rng)
+    single_checkpoints(torch, root, streams)
+    single_cli(torch, root)
+    single_readings(torch, root)
+    log(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
 def main() -> int:
     import torch
 
@@ -2608,6 +3152,12 @@ def main() -> int:
                  phase_switch(torch, streams, golden, digests)):
         for k, n in more.items():
             launches[k] += n
+    single, resize_err = phase_single(torch, root, streams, digests, rng)
+    for k, n in single.items():
+        launches[k] += n
+    for r in records:
+        if r["name"] == "reconstruct":
+            r["max_abs_err"] = max(r["max_abs_err"], resize_err)
     for mod in ("jax", "h263_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")

@@ -9,9 +9,13 @@
 // Neither the int32 residual nor the int32 prediction reaches device memory.
 //
 // Inputs per stream: dense int16 [6*nmb, 64], MVs int16 [mbh, mbw, 4, 2],
-// INTER flags uint8 [mbh, mbw], reference planes uint8 [h, w] and two
-// [ch, cw].  Outputs: three fresh planes of the same shapes (never in place:
-// a neighbouring block's predictor reads the reference).
+// INTER flags uint8 [mbh, mbw], reference planes uint8 [ref_h, ref_w] and
+// two [(ref_h+1)/2, (ref_w+1)/2].  Outputs: three planes [h, w] and two
+// [ch, cw], never in place (a neighbouring block's predictor reads the
+// reference).  The reference keeps its own dims, as the JAX single decoder's
+// `get_reconstruct_fn(h, w)` does: a picture after a size change predicts
+// from the old-size picture, its source coordinates clamped to that
+// picture's edges.
 //
 // What bounds it: bytes.  Per CIF frame 304 KB of coefficients, 152 KB of
 // reference read and 152 KB of planes written, against ~2k f32 operations
@@ -47,6 +51,11 @@
 //      widths store byte by byte, cropped.
 // The grid is (chunk, stream), so no thread divides by the blocks of a
 // stream; six thread blocks are resident on an SM (40 registers).
+// A reference of other dims than the output (the single-stream decoder
+// across a size change) takes its own instantiation, kRefDims: the
+// batched decoders' launches, whose references always have the output's
+// dims, keep the code they had before the reference had dims of its own
+// (the extra dims and offsets cost registers, and spills, in every thread).
 // Errored lanes need no case of their own: the automaton hands them zero
 // coefficients, INTER everywhere and zero MVs, the identity frame.
 
@@ -123,6 +132,7 @@ __device__ __forceinline__ void select_mv(const int4& m,
   }
 }
 
+template <bool kRefDims>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 reconstruct_kernel(const int16_t* __restrict__ dense,
                    const int16_t* __restrict__ mvs,
@@ -209,7 +219,10 @@ reconstruct_kernel(const int16_t* __restrict__ dense,
   select_mv(cur.mvs, p, &mvx, &mvy);
   const int ph = p.plane == 0 ? g.h : (g.h + 1) / 2;
   const int pw = p.plane == 0 ? g.w : (g.w + 1) / 2;
-  const int64_t plane_off = (int64_t)stream * ph * pw;
+  const int rph =
+      !kRefDims ? ph : (p.plane == 0 ? g.ref_h : (g.ref_h + 1) / 2);
+  const int rpw =
+      !kRefDims ? pw : (p.plane == 0 ? g.ref_w : (g.ref_w + 1) / 2);
   const bool res_zero = s_zero[bb];
   __align__(16) int16_t res[8];
   if (!res_zero)
@@ -223,25 +236,30 @@ reconstruct_kernel(const int16_t* __restrict__ dense,
   uint8_t* out = pl == 0 ? planes.out[0]
                          : (pl == 1 ? planes.out[1] : planes.out[2]);
   const bool wide_store = pl == 0 ? planes.wide_store[0] : planes.wide_store[1];
-  h263::reconstruct_block_row(ref + plane_off, out + plane_off, ph, pw, p.bx,
-                              p.by, y, mvx, mvy, cur.inter, res, res_zero,
-                              planes.wide_load, wide_store);
+  h263::reconstruct_block_row(ref + (int64_t)stream * rph * rpw,
+                              out + (int64_t)stream * ph * pw, ph, pw, rph,
+                              rpw, p.bx, p.by, y, mvx, mvy, cur.inter, res,
+                              res_zero, planes.wide_load, wide_store);
 }
 
 }  // namespace
 
 // dense int16 [S, 6*nmb, 64]; mvs int16 [S, mbh, mbw, 4, 2]; inter uint8
-// [S, mbh, mbw]; ref_* and out_* uint8 [S, h, w] and [S, ch, cw] twice;
-// basis: device pointer to BASIS_F32 (64 floats).
+// [S, mbh, mbw]; ref_* uint8 [S, ref_h, ref_w] and [S, (ref_h+1)/2,
+// (ref_w+1)/2] twice; out_* uint8 [S, h, w] and [S, ch, cw] twice (the
+// batched decoders pass ref dims equal to h, w; the single-stream decoder
+// other ones across a size change); basis: device pointer to BASIS_F32 (64
+// floats).
 extern "C" int h263_reconstruct(const void* dense, const void* mvs,
                                 const void* inter, const void* ref_y,
                                 const void* ref_cb, const void* ref_cr,
                                 void* out_y, void* out_cb, void* out_cr, int S,
-                                int mbh, int mbw, int h, int w,
-                                const void* basis, void* stream) {
+                                int mbh, int mbw, int h, int w, int ref_h,
+                                int ref_w, const void* basis, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (S <= 0 || mbh <= 0 || mbw <= 0 || h <= 0 || w <= 0)
     return (int)cudaGetLastError();
+  if (ref_h <= 0 || ref_w <= 0) return (int)cudaErrorInvalidValue;
   Planes planes;
   planes.ref[0] = reinterpret_cast<const uint8_t*>(ref_y);
   planes.ref[1] = reinterpret_cast<const uint8_t*>(ref_cb);
@@ -261,8 +279,10 @@ extern "C" int h263_reconstruct(const void* dense, const void* mvs,
   if (S > 65535 || (int64_t)6 * mbh * mbw > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((6 * mbh * mbw + kBlocks - 1) / kBlocks, S);
-  h263::FrameGeometry g{mbh, mbw, h, w};
-  reconstruct_kernel<<<grid, kThreads, 0, st>>>(
+  h263::FrameGeometry g{mbh, mbw, h, w, ref_h, ref_w};
+  auto kernel = ref_h == h && ref_w == w ? reconstruct_kernel<false>
+                                         : reconstruct_kernel<true>;
+  kernel<<<grid, kThreads, 0, st>>>(
       reinterpret_cast<const int16_t*>(dense),
       reinterpret_cast<const int16_t*>(mvs),
       reinterpret_cast<const uint8_t*>(inter), planes,

@@ -27,8 +27,10 @@
 namespace h263 {
 
 struct FrameGeometry {
-  int mbh, mbw;  // macroblock grid
-  int h, w;      // luma plane; chroma is ((h+1)/2, (w+1)/2)
+  int mbh, mbw;      // macroblock grid
+  int h, w;          // luma plane written; chroma is ((h+1)/2, (w+1)/2)
+  int ref_h, ref_w;  // luma plane of the reference, the same way: it keeps
+                     // the previous picture's dims across a size change
 };
 
 // Where block k (0 .. 6*nmb-1) of a stream lies.
@@ -157,10 +159,12 @@ H263_HD H263_INLINE uint64_t avg4_bytes(uint64_t a, uint64_t b, uint64_t c,
   return even | (odd << 8);
 }
 
-// The prediction of the 8 samples (x0 .. x0+7, y) of a plane [h, w] from the
-// reference plane `ref` and the half-pel MV: floor(mv / 2) whole samples,
-// (a+b+1)>>1 and (a+b+c+d+2)>>2 at half positions, every source coordinate
-// clamped to the picture edge on its own; 0 for a block that is not INTER.
+// The prediction of the 8 samples (x0 .. x0+7, y) of a plane from the
+// reference plane `ref` [rh, rw] and the half-pel MV: floor(mv / 2) whole
+// samples, (a+b+1)>>1 and (a+b+c+d+2)>>2 at half positions, every source
+// coordinate clamped to the reference's edge on its own; 0 for a block that
+// is not INTER.  The reference's dims may differ from the plane's written
+// (a picture after a size change predicts from the old picture).
 // With `wide` (a reference that starts on an 8-byte boundary) a row whose
 // samples lie inside the picture comes as aligned 8-byte words.
 //
@@ -169,24 +173,24 @@ H263_HD H263_INLINE uint64_t avg4_bytes(uint64_t a, uint64_t b, uint64_t c,
 // whole and the right neighbours = the samples where x is whole,
 // (a0+a1+b0+b1+2)>>2 is (2(a0+a1)+2)>>2 = (a0+a1+1)>>1, (2(a0+b0)+2)>>2 =
 // (a0+b0+1)>>1 and (4 a0+2)>>2 = a0.
-H263_HD H263_INLINE uint64_t predict_row(const uint8_t* ref, int h, int w,
+H263_HD H263_INLINE uint64_t predict_row(const uint8_t* ref, int rh, int rw,
                                          int x0, int y, int mvx, int mvy,
                                          bool inter, bool wide) {
   if (!inter) return 0;
   const int sx = x0 + (mvx >> 1), sy = y + (mvy >> 1);
   const bool xi = (mvx & 1) != 0, yi = (mvy & 1) != 0;
-  const uint8_t* r0 = ref + (int64_t)clampi(sy, 0, h - 1) * w;
-  const uint8_t* r1 = ref + (int64_t)clampi(sy + 1, 0, h - 1) * w;
+  const uint8_t* r0 = ref + (int64_t)clampi(sy, 0, rh - 1) * rw;
+  const uint8_t* r1 = ref + (int64_t)clampi(sy + 1, 0, rh - 1) * rw;
   // Inside the row: columns sx .. sx+7 (and sx+8 at a half position).
-  const bool inside = wide && sx >= 0 && sx + (xi ? 9 : 8) <= w;
+  const bool inside = wide && sx >= 0 && sx + (xi ? 9 : 8) <= rw;
   uint64_t a0, a1, b0, b1;
-  if (!(inside && load_row_wide(r0 + sx, w - sx, xi, &a0, &a1)))
-    load_row_clamped(r0, w, sx, xi, &a0, &a1);
+  if (!(inside && load_row_wide(r0 + sx, rw - sx, xi, &a0, &a1)))
+    load_row_clamped(r0, rw, sx, xi, &a0, &a1);
   if (!yi) {
     b0 = a0;
     b1 = a1;
-  } else if (!(inside && load_row_wide(r1 + sx, w - sx, xi, &b0, &b1))) {
-    load_row_clamped(r1, w, sx, xi, &b0, &b1);
+  } else if (!(inside && load_row_wide(r1 + sx, rw - sx, xi, &b0, &b1))) {
+    load_row_clamped(r1, rw, sx, xi, &b0, &b1);
   }
   if (!xi && !yi) return a0;
   if (!xi) {
@@ -200,20 +204,20 @@ H263_HD H263_INLINE uint8_t add_clamp(int pred, int res) {
   return (uint8_t)clampi(pred + res, 0, 255);
 }
 
-// Row `row` (0..7) of one block: predict, add the residuals `res[8]` (not
-// read when `res_zero` says the block has none), clamp and store into the
-// plane `out` [h, w], cropped where the block grid overhangs the picture.
-// `wide_load`: see predict_row.  `wide_store`: an 8-sample row is 8-byte
-// aligned in `out` (w % 8 == 0 and an aligned plane) and goes out as one
-// store.
+// Row `row` (0..7) of one block: predict from `ref` [rh, rw], add the
+// residuals `res[8]` (not read when `res_zero` says the block has none),
+// clamp and store into the plane `out` [h, w], cropped where the block grid
+// overhangs the picture.  `wide_load`: see predict_row.  `wide_store`: an
+// 8-sample row is 8-byte aligned in `out` (w % 8 == 0 and an aligned plane)
+// and goes out as one store.
 template <class Res>
 H263_HD H263_INLINE void reconstruct_block_row(
-    const uint8_t* ref, uint8_t* out, int h, int w, int bx, int by, int row,
-    int mvx, int mvy, bool inter, const Res* res, bool res_zero,
-    bool wide_load, bool wide_store) {
+    const uint8_t* ref, uint8_t* out, int h, int w, int rh, int rw, int bx,
+    int by, int row, int mvx, int mvy, bool inter, const Res* res,
+    bool res_zero, bool wide_load, bool wide_store) {
   const int x0 = bx * 8, y = by * 8 + row;
   if (y >= h || x0 >= w) return;
-  uint64_t px = predict_row(ref, h, w, x0, y, mvx, mvy, inter, wide_load);
+  uint64_t px = predict_row(ref, rh, rw, x0, y, mvx, mvy, inter, wide_load);
   if (!res_zero) {
     uint64_t sum = 0;
 H263_UNROLL

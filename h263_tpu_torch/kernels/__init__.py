@@ -63,9 +63,10 @@ SIGNATURES = {
     #  strength int32 [S], apply u8 [S], stream)
     "h263_present_rgba": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # (dense int16 [S,6*nmb,64], mvs int16 [S,mbh,mbw,4,2], inter u8
-    #  [S,mbh,mbw], ref y/cb/cr u8, out y/cb/cr u8, S, mbh, mbw, h, w,
-    #  basis f32 [64] on the device, stream)
-    "h263_reconstruct": [_P] * 9 + [_I] * 5 + [_P, _P],
+    #  [S,mbh,mbw], ref y/cb/cr u8, out y/cb/cr u8, S, mbh, mbw, h, w
+    #  (the output's luma dims), ref_h, ref_w (the references'), basis f32
+    #  [64] on the device, stream)
+    "h263_reconstruct": [_P] * 9 + [_I] * 7 + [_P, _P],
     # (rows u8 [S, L], row pitch in bytes, entries per row, MV bytes per MB
     #  (2 or 8; 0: the rows hold entries alone and only dense is written),
     #  S, mbh, mbw, zigzag u8 [64] on the device, dense int16 [S,6*nmb,64],

@@ -42,13 +42,14 @@ def _expand_luma_mask(inter):
 
 
 def reconstruct_from_residuals(res_y, res_cb, res_cr, mvs, inter,
-                               ref_y, ref_cb, ref_cr):
+                               ref_y, ref_cb, ref_cr, out_hw=None):
     """Batched `reconstruct_from_residuals_single`: residuals int32
     [S, nby, nbx, 8, 8] per plane, mvs [S, mbh, mbw, 4, 2], inter bool
-    [S, mbh, mbw], reference planes uint8 [S, ...] -> uint8 (y, cb, cr).
-    One plane at a time, so that the int32 sample planes of only one
-    plane are alive at once."""
-    h, w = ref_y.shape[-2], ref_y.shape[-1]
+    [S, mbh, mbw], reference planes uint8 [S, ...] -> uint8 (y, cb, cr) of
+    luma dims `out_hw` (None: the reference's; other dims predict from the
+    reference at its own, clamped to its edges).  One plane at a time, so
+    that the int32 sample planes of only one plane are alive at once."""
+    h, w = out_hw or (ref_y.shape[-2], ref_y.shape[-1])
     ch, cw = (h + 1) // 2, (w + 1) // 2
     inter = inter.to(torch.bool)
 
@@ -65,11 +66,12 @@ def reconstruct_from_residuals(res_y, res_cb, res_cr, mvs, inter,
 
 
 def reconstruct_from_dense_plain(dense, mvs, inter, ref_y, ref_cb, ref_cr,
-                                 idct=idct_residual_fused, out=None):
+                                 idct=idct_residual_fused, out=None,
+                                 out_hw=None):
     """Dense int16 [S, 6*nmb, 64] coefficients (luma block grid row-major,
     then Cb, then Cr; row-major within a block) + MVs + INTER flags +
-    reference planes -> uint8 (y, cb, cr) planes, written into `out`
-    (three planes of the references' shapes) when it is given.  `idct`
+    reference planes -> uint8 (y, cb, cr) planes of luma dims `out_hw`
+    (None: the references'), written into `out` when it is given.  `idct`
     maps the dense tensor to int32 residuals of the same shape."""
     s, mbh, mbw = inter.shape
     nmb = mbh * mbw
@@ -78,7 +80,7 @@ def reconstruct_from_dense_plain(dense, mvs, inter, ref_y, ref_cb, ref_cr,
     rcb = res[:, 4 * nmb:5 * nmb].reshape(s, mbh, mbw, 8, 8)
     rcr = res[:, 5 * nmb:].reshape(s, mbh, mbw, 8, 8)
     planes = reconstruct_from_residuals(ry, rcb, rcr, mvs, inter,
-                                        ref_y, ref_cb, ref_cr)
+                                        ref_y, ref_cb, ref_cr, out_hw)
     if out is None:
         return planes
     for o, p in zip(out, planes):

@@ -45,6 +45,7 @@ N_STD_CORPORA = 16
 STD_QCIF_SEED = 350  # sq0
 UMV_SEED = 400      # u0
 D3_SEED = 500       # d0
+RESIZE_SEED = 700   # resize_sequence
 
 
 def build_corpus(width: int, height: int, n_frames: int, seed: int,
@@ -290,6 +291,58 @@ def fma_sequence(width: int, height: int, n_frames: int):
         [MBSpec(kind="uncoded")] * nmb, quantizer=5,
         temporal_reference=tr) for tr in range(2, n_frames)]
     return [f0, f1] + rest
+
+
+#: (luma width, height, macroblocks coded or None for all, I or P) of each
+#: picture of `resize_sequence`: sizes that are no multiples of 16, P-frames
+#: that change size with motion (up and down), I-frames that end early, so
+#: that their tail macroblocks are INTER with MV 0 over the old-size
+#: reference (down and up), and a plain I-frame size change.
+RESIZE_STEPS = (
+    (40, 24, None, "I"), (40, 24, None, "P"), (72, 58, None, "P"),
+    (72, 58, None, "P"), (36, 22, 2, "I"), (36, 22, None, "P"),
+    (88, 70, None, "P"), (72, 58, 7, "I"), (56, 40, None, "I"),
+    (56, 40, None, "P"))
+
+
+def resize_sequence(seed: int = RESIZE_SEED):
+    """Sorenson pictures through the size changes of `RESIZE_STEPS`, each
+    picture predicting from the last at that one's dims (the single-stream
+    decoder's case; a batched decoder's bucket has one size).  MVDs of up
+    to +-30 half-pels reach past every edge of both pictures."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for tr, (w, h, coded, kind) in enumerate(RESIZE_STEPS):
+        nmb = (-(-w // 16)) * (-(-h // 16))
+        if kind == "I":
+            mbs = [MBSpec(kind="intra",
+                          intradc=[int(rng.integers(1, 250)) * 8
+                                   for _ in range(6)],
+                          blocks=[[(int(rng.integers(0, 6)),
+                                    int(rng.integers(1, 9)))]
+                                  for _ in range(6)])
+                   for _ in range(coded or nmb)]
+            frames.append(encode_sorenson_picture(
+                w, h, PictureTypeCode.I_FRAME, mbs, temporal_reference=tr))
+            continue
+        mbs = []
+        for _ in range(nmb):
+            roll = rng.random()
+            if roll < 0.15:
+                mbs.append(MBSpec(kind="uncoded"))
+                continue
+            nmv = 4 if roll > 0.8 else 1
+            mvd = [(int(rng.integers(-30, 31)), int(rng.integers(-30, 31)))
+                   for _ in range(nmv)]
+            mbs.append(MBSpec(
+                kind="inter" if nmv == 1 else "inter4v", mvd=mvd,
+                blocks=[[(int(rng.integers(0, 9)),
+                          int(rng.integers(1, 10)) * int(rng.choice([-1, 1])))]
+                        if rng.random() < 0.5 else [] for _ in range(6)]))
+        frames.append(encode_sorenson_picture(
+            w, h, PictureTypeCode.P_FRAME, mbs, temporal_reference=tr,
+            quantizer=int(rng.integers(2, 16))))
+    return frames
 
 
 def cif_corpus(k: int):

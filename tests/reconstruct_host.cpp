@@ -13,13 +13,17 @@ static bool aligned8(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 8 == 0;
 }
 
-extern "C" int h263_reconstruct_host(
+// Reference planes [S, ref_h, ref_w] (chroma [S, (ref_h+1)/2, (ref_w+1)/2]),
+// output planes [S, h, w] and [S, ch, cw]: a picture after a size change
+// predicts from the previous picture at its own dims.
+extern "C" int h263_reconstruct_host_ref(
     const int16_t* dense, const int16_t* mvs, const uint8_t* inter,
     const uint8_t* ref_y, const uint8_t* ref_cb, const uint8_t* ref_cr,
     uint8_t* out_y, uint8_t* out_cb, uint8_t* out_cr, int S, int mbh, int mbw,
-    int h, int w, const float* basis) {
-  const h263::FrameGeometry g{mbh, mbw, h, w};
+    int h, int w, int ref_h, int ref_w, const float* basis) {
+  const h263::FrameGeometry g{mbh, mbw, h, w, ref_h, ref_w};
   const int nmb = mbh * mbw, ch = (h + 1) / 2, cw = (w + 1) / 2;
+  const int rch = (ref_h + 1) / 2, rcw = (ref_w + 1) / 2;
   const uint8_t* refs[3] = {ref_y, ref_cb, ref_cr};
   uint8_t* outs[3] = {out_y, out_cb, out_cr};
   for (int64_t s = 0; s < S; ++s) {
@@ -32,17 +36,28 @@ extern "C" int h263_reconstruct_host(
       int mvx, mvy;
       h263::block_mv(mvs + mb * 8, p, &mvx, &mvy);
       const int ph = p.plane == 0 ? h : ch, pw = p.plane == 0 ? w : cw;
-      const int64_t off = s * ph * pw;
+      const int rph = p.plane == 0 ? ref_h : rch;
+      const int rpw = p.plane == 0 ? ref_w : rcw;
       // The launcher's conditions for the 8-byte loads and stores.
       const bool wide_load = aligned8(refs[p.plane]);
       const bool wide_store = pw % 8 == 0 && aligned8(outs[p.plane]);
       for (int row = 0; row < 8; ++row)
-        h263::reconstruct_block_row(refs[p.plane] + off, outs[p.plane] + off,
-                                    ph, pw, p.bx, p.by, row, mvx, mvy,
-                                    inter[mb] != 0, res + row * 8,
-                                    cls == h263::IDCT_ZERO, wide_load,
-                                    wide_store);
+        h263::reconstruct_block_row(
+            refs[p.plane] + s * rph * rpw, outs[p.plane] + s * ph * pw, ph,
+            pw, rph, rpw, p.bx, p.by, row, mvx, mvy, inter[mb] != 0,
+            res + row * 8, cls == h263::IDCT_ZERO, wide_load, wide_store);
     }
   }
   return 0;
+}
+
+// The same with the reference at the output's dims (the batched decoders).
+extern "C" int h263_reconstruct_host(
+    const int16_t* dense, const int16_t* mvs, const uint8_t* inter,
+    const uint8_t* ref_y, const uint8_t* ref_cb, const uint8_t* ref_cr,
+    uint8_t* out_y, uint8_t* out_cb, uint8_t* out_cr, int S, int mbh, int mbw,
+    int h, int w, const float* basis) {
+  return h263_reconstruct_host_ref(dense, mvs, inter, ref_y, ref_cb, ref_cr,
+                                   out_y, out_cb, out_cr, S, mbh, mbw, h, w,
+                                   h, w, basis);
 }

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from h263_tpu_torch import BatchedStreamDecoder  # noqa: E402
 from h263_tpu_torch import DeviceFrontendDecoder  # noqa: E402
+from h263_tpu_torch import DecoderOption, H263Decoder  # noqa: E402
 from h263_tpu_torch.decoder.reconstruct import (  # noqa: E402
     present_rgba_batched,
 )
@@ -36,7 +37,11 @@ from h263_tpu_torch.ops.yuv import yuv420_to_rgba  # noqa: E402
 from h263_tpu_torch.parallel.pool import StreamPool  # noqa: E402
 from h263_tpu_torch.parser import automaton_cuda  # noqa: E402
 from h263_tpu_torch.parser import device_frontend as tdf  # noqa: E402
-from h263_tpu_torch.testing.corpora import d24_rows, rich_gop  # noqa: E402
+from h263_tpu_torch.testing.corpora import (  # noqa: E402
+    d24_rows,
+    resize_sequence,
+    rich_gop,
+)
 from h263_tpu_torch.types import H263Error  # noqa: E402
 
 
@@ -618,3 +623,58 @@ def test_cuda_switched_pool_matches_cpu_switched_pool(cuda):
         for sid in ("a", "b"):
             for x, y in zip(outs[0][sid], outs[1][sid]):
                 np.testing.assert_array_equal(x, y, err_msg=f"{t} {sid}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ref_hw,out_hw", [((24, 40), (58, 72)),
+                                           ((58, 72), (22, 36)),
+                                           ((145, 177), (288, 352)),
+                                           ((288, 352), (145, 177))])
+def test_reconstruct_kernel_with_a_reference_of_other_dims(cuda, ref_hw,
+                                                           out_hw):
+    """The single-stream decoder's call across a size change: output
+    planes of `out_hw` predicted from references of `ref_hw`, MVs that
+    reach past every edge of both, equal to the plain version."""
+    rng = np.random.default_rng(sum(ref_hw) + 7 * sum(out_hw))
+    (h, w), (rh, rw) = out_hw, ref_hw
+    S, mbh, mbw = 3, -(-h // 16), -(-w // 16)
+    dense = rng.integers(-300, 300, (S, 6 * mbh * mbw, 64)).astype(np.int16)
+    dense[:, ::3] = 0
+    dense[:, 1::3, 1:] = 0
+    reach = 2 * max(h, w, rh, rw) + 9
+    mvs = rng.integers(-reach, reach + 1, (S, mbh, mbw, 4, 2)).astype(
+        np.int16)
+    mvs[1] = rng.integers(-9, 10, mvs[1].shape)
+    inter = rng.random((S, mbh, mbw)) < 0.8
+    refs = [rng.integers(0, 256, (S, *hw), dtype=np.uint8)
+            for hw in ((rh, rw), ((rh + 1) // 2, (rw + 1) // 2),
+                       ((rh + 1) // 2, (rw + 1) // 2))]
+    args = [torch.as_tensor(a) for a in (dense, mvs, inter, *refs)]
+    want = reconstruct_from_dense_plain(*args, out_hw=out_hw)
+    before = reconstruct_cuda.launches
+    got = reconstruct_cuda.reconstruct_from_dense_cuda(
+        *(a.to(cuda) for a in args), out_hw=out_hw)
+    assert reconstruct_cuda.launches == before + 1
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_single_decoder_matches_cpu_decoder_across_size_changes(cuda):
+    """H263Decoder on the card and on the CPU over a short GOP through
+    every kind of size change: planes and RGBA equal at every frame, and
+    each frame launches the reconstruct kernel once."""
+    gd = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM)
+    cd = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM, device="cpu")
+    assert gd.device.type == "cuda"
+    for t, buf in enumerate(resize_sequence()):
+        before = (reconstruct_cuda.launches, present_cuda.launches)
+        g, c = gd.decode_next_picture(buf), cd.decode_next_picture(buf)
+        assert g.luma.device.type == "cuda"
+        for a, b in zip(g.as_yuv(), c.as_yuv()):
+            np.testing.assert_array_equal(a, b, err_msg=f"frame {t}")
+        for deblock in (None, True, False):
+            np.testing.assert_array_equal(gd.last_picture_rgba(deblock),
+                                          cd.last_picture_rgba(deblock))
+        assert (reconstruct_cuda.launches, present_cuda.launches) == (
+            before[0] + 1, before[1] + 3)

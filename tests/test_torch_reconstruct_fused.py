@@ -246,3 +246,129 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_checks_arguments():
         reconstruct_cuda.reconstruct_from_dense_cuda(
             args[0][:, :24], args[1][:, :2, :2], args[2][:, :2, :2],
             *args[3:])
+
+
+# -- a reference of other dims (the single-stream decoder across a size
+# change): the JAX single decoder's `get_reconstruct_fn(h, w)`.
+
+REF_OUT = [((33, 47), (58, 72)), ((58, 72), (33, 47)), ((16, 16), (40, 24)),
+           ((145, 177), (144, 176)), ((24, 40), (24, 72))]
+
+
+def make_resized(seed, S, ref_hw, out_hw):
+    """make_frame's inputs at the output's grid, with reference planes of
+    `ref_hw` and MVs that reach past every edge of both pictures."""
+    dense, mvs, inter, _ = make_frame(seed, S, *out_hw)
+    rng = np.random.default_rng(seed + 1)
+    rh, rw = ref_hw
+    reach = 2 * max(*ref_hw, *out_hw) + 9
+    far = rng.integers(-reach, reach + 1, mvs.shape).astype(np.int16)
+    mvs = np.where(rng.random(mvs.shape[:3])[..., None, None] < 0.3, far, mvs)
+    refs = [rng.integers(0, 256, (S, ph, pw), dtype=np.uint8)
+            for ph, pw in ((rh, rw), ((rh + 1) // 2, (rw + 1) // 2),
+                           ((rh + 1) // 2, (rw + 1) // 2))]
+    return dense, mvs.astype(np.int16), inter, refs
+
+
+def run_host_ref(lib, dense, mvs, inter, refs, out_hw):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.h263_reconstruct_host_ref
+    fn.argtypes = [P] * 9 + [I] * 7 + [P]
+    fn.restype = I
+    S, mbh, mbw = inter.shape
+    h, w = out_hw
+    rh, rw = refs[0].shape[1:]
+    outs = [np.full((S, *hw), 0x5A, np.uint8)
+            for hw in ((h, w), ((h + 1) // 2, (w + 1) // 2),
+                       ((h + 1) // 2, (w + 1) // 2))]
+    inter_u8 = np.ascontiguousarray(inter.astype(np.uint8))
+    assert fn(dense.ctypes.data, mvs.ctypes.data, inter_u8.ctypes.data,
+              *(r.ctypes.data for r in refs), *(o.ctypes.data for o in outs),
+              S, mbh, mbw, h, w, rh, rw, BASIS.ctypes.data) == 0
+    return outs
+
+
+def jax_single(dense, mvs, inter, refs, out_hw):
+    """The JAX single decoder's program, `get_reconstruct_fn(h, w)`, one
+    stream at a time, with the classes derived from the dense blocks."""
+    from h263_tpu.ops.idct import derive_classes_jnp
+
+    S, mbh, mbw = inter.shape
+    nmb = mbh * mbw
+    fn = jrec.get_reconstruct_fn(*out_hw)
+    outs = [[], [], []]
+    for s in range(S):
+        cls = np.asarray(derive_classes_jnp(dense[s:s + 1]))[0]
+        y, cb, cr = fn(
+            dense[s, :4 * nmb].reshape(2 * mbh, 2 * mbw, 8, 8),
+            cls[:4 * nmb].reshape(2 * mbh, 2 * mbw),
+            dense[s, 4 * nmb:5 * nmb].reshape(mbh, mbw, 8, 8),
+            cls[4 * nmb:5 * nmb].reshape(mbh, mbw),
+            dense[s, 5 * nmb:].reshape(mbh, mbw, 8, 8),
+            cls[5 * nmb:].reshape(mbh, mbw),
+            mvs[s], inter[s], refs[0][s], refs[1][s], refs[2][s])
+        for o, p in zip(outs, (y, cb, cr)):
+            o.append(np.asarray(p))
+    return [np.stack(o) for o in outs]
+
+
+@pytest.mark.parametrize("ref_hw,out_hw", REF_OUT)
+def test_kernel_source_with_a_reference_of_other_dims_matches_jax(
+        host_lib, ref_hw, out_hw):
+    dense, mvs, inter, refs = make_resized(sum(ref_hw) * 7 + sum(out_hw), 2,
+                                           ref_hw, out_hw)
+    got = run_host_ref(host_lib, dense, mvs, inter, refs, out_hw)
+    want = jax_single(dense, mvs, inter, refs, out_hw)
+    plain = reconstruct_from_dense_plain(
+        _t(dense), _t(mvs), _t(inter), *(_t(r) for r in refs),
+        out_hw=out_hw)
+    for name, a, b, c in zip(("y", "cb", "cr"), got, want, plain):
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(a, b, err_msg=name)
+        np.testing.assert_array_equal(a, c.numpy(), err_msg=name)
+
+
+def test_mutation_striding_the_reference_by_the_output_width_fails(tmp_path):
+    """The comparison sees a kernel that walks the reference with the
+    output's row stride: a copy of reconstruct.cuh whose predict_row is
+    handed the output's dims no longer matches."""
+    src = tmp_path / "h263_tpu_torch" / "csrc"
+    src.mkdir(parents=True)
+    text = (CSRC / "reconstruct.cuh").read_text()
+    call = "predict_row(ref, rh, rw, x0,"
+    assert text.count(call) == 1
+    (src / "reconstruct.cuh").write_text(
+        text.replace(call, "predict_row(ref, h, w, x0,"))
+    (src / "idct.cuh").write_text((CSRC / "idct.cuh").read_text())
+    (tmp_path / "tests").mkdir()
+    host = tmp_path / "tests" / HOST_SRC.name
+    host.write_text(HOST_SRC.read_text())
+    lib = _build(tmp_path, host, "libmutant.so",
+                 extra=("-Wno-unused-parameter",))
+    dense, mvs, inter, refs = make_resized(5, 2, (24, 40), (40, 72))
+    got = run_host_ref(lib, dense, mvs, inter, refs, (40, 72))
+    want = jax_single(dense, mvs, inter, refs, (40, 72))
+    assert any((a != b).any() for a, b in zip(got, want))
+
+
+def test_wrapper_takes_output_dims_on_cpu():
+    dense, mvs, inter, refs = make_resized(11, 2, (24, 40), (40, 72))
+    args = [_t(a) for a in (dense, mvs, inter, *refs)]
+    got = reconstruct_cuda.reconstruct_from_dense_cuda(*args,
+                                                       out_hw=(40, 72))
+    assert [tuple(p.shape) for p in got] == [(2, 40, 72), (2, 20, 36),
+                                             (2, 20, 36)]
+    want = jax_single(dense, mvs, inter, refs, (40, 72))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b)
+    out = [torch.empty_like(p) for p in got]
+    reconstruct_cuda.reconstruct_from_dense_cuda(*args, out=out,
+                                                 out_hw=(40, 72))
+    for a, b in zip(out, got):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):     # out of the references' shapes
+        reconstruct_cuda.reconstruct_from_dense_cuda(
+            *args, out=[torch.empty_like(r) for r in args[3:]],
+            out_hw=(40, 72))
+    with pytest.raises(ValueError):     # beyond the macroblock grid
+        reconstruct_cuda.reconstruct_from_dense_cuda(*args, out_hw=(49, 72))
