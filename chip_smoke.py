@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (h263_tpu_torch) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (h263_tpu_torch) on the GPUs of one
+machine (one is enough; phase 14 also meshes every card when there are
+more).
 
     python3 chip_smoke.py
 
@@ -128,9 +130,38 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      bytes bound, and peak memory, for the CIF, 720p and 1408x1152
      fixtures.
 
-The kernels line's launch counts are those of phases 8-12, and of phase
-13's (a)-(c) decoder runs (each run with the counts set to 0 just before
-it).
+  14. stream sharding over a mesh (`parallel/sharding.py`, `mesh=`): (a) a
+     mesh of two shards on cuda:0 (`make_stream_mesh(["cuda:0"] * 2)`)
+     and, with two cards or more, one over every card
+     (`make_stream_mesh()`), 1024 CIF streams a shard; (b)
+     DeviceFrontendDecoder(1024 * n, 352, 288, mesh=...) over the GOP
+     with every shard's first lane cut and last lane byte-flipped and a
+     header reject in the last shard: at every frame the gathered planes,
+     statuses and raised error (class and global stream) torch.equal to
+     an unsharded DeviceFrontendDecoder on cuda:0 over the same S, in
+     windows of 4 too, present_rgba equal, sampled lanes equal the
+     reference digests; (c) BatchedStreamDecoder over the same mesh equal
+     at every frame to the device front-end over the mesh on clean lanes,
+     with a forced MV-row flip and a PackOverflow replay; (d) a standard
+     H.263 GOP on both mesh decoders equal to the unsharded device
+     front-end; (e) with two cards or more, DeviceFrontendDecoder,
+     BatchedStreamDecoder and H263Decoder on cuda:1 equal to cuda:0's at
+     every frame, and every kernel on cuda:1 equal to its plain version;
+     (f) a mesh P-step's split (each shard's prep and copy, each shard's
+     dispatch; the host front-end's one parse, then each shard's
+     dispatch) and back-to-back frames/s of each mesh and of the unsharded
+     decoders at the same S, in turns.
+
+The kernels line's launch counts are those of phases 8-12, of phase 13's
+(a)-(c) decoder runs (each run with the counts set to 0 just before it),
+and of phase 14's mesh decoders' runs (each with the counts set to 0
+just before it and read just after it, every card synchronised at both
+ends; the unsharded references left out).
+
+    python3 chip_smoke.py --split-ab DIR...
+
+instead splits the one-card main path's P-step in each checkout DIR in
+turn (`split_ab`), for an A/B of two commits on one card.
 
 The oracle is `h263_tpu_torch/testdata/reference_digests.json`: SHA-256
 digests of the numpy reference decoder's planes and deblocked RGBA, which
@@ -436,17 +467,18 @@ def kernel_modules():
 
 
 class ReconstructProbe:
-    """Stands in for `device_batch.reconstruct_from_dense` while installed:
+    """Stands in for `automaton_cuda.reconstruct_from_dense` (the device
+    front-end's reconstruction, in `whole_step`) while installed:
     passes every call on, and on the first call with `n_streams` streams
     keeps the call's inputs and holds its planes against the earlier design
     on the same inputs, the plain reconstruction over the IDCT kernel's
     residuals (which keeps csrc/idct.cu on real main-path data)."""
 
     def __init__(self, torch, n_streams):
-        from h263_tpu_torch.parallel import device_batch
+        from h263_tpu_torch.parser import automaton_cuda
 
-        self.torch, self.n, self.mod = torch, n_streams, device_batch
-        self.fn = device_batch.reconstruct_from_dense
+        self.torch, self.n, self.mod = torch, n_streams, automaton_cuda
+        self.fn = automaton_cuda.reconstruct_from_dense
         self.inputs = None
 
     def __enter__(self):
@@ -472,17 +504,18 @@ class ReconstructProbe:
 
 
 class PresentProbe:
-    """Stands in for `device_batch.present_rgba_batched` while installed:
+    """Stands in for `decoder.reconstruct.present_rgba_batched` (the
+    batched decoders' present, through `shard_present_fn`) while installed:
     passes every call on, and on the first call with `n_streams` streams
     holds its RGBA against the YUV kernel's over the deblock kernel's planes
     on the same inputs (which keeps csrc/deblock.cu and csrc/yuv.cu on real
     main-path data).  With `keep` it keeps that call's inputs."""
 
     def __init__(self, torch, n_streams, keep=False):
-        from h263_tpu_torch.parallel import device_batch
+        from h263_tpu_torch.decoder import reconstruct as recon_mod
 
-        self.torch, self.n, self.mod = torch, n_streams, device_batch
-        self.fn = device_batch.present_rgba_batched
+        self.torch, self.n, self.mod = torch, n_streams, recon_mod
+        self.fn = recon_mod.present_rgba_batched
         self.keep, self.checked, self.inputs = keep, False, None
 
     def __enter__(self):
@@ -620,7 +653,7 @@ def split_calls(torch, dec, call, tag, n=3):
     automaton's start on the stream), the automaton with its wrapper and
     each reconstruct launch (CUDA events), and what remains of the call's
     wall time (buffer handling, Python, launches, the final synchronise)."""
-    from h263_tpu_torch.parallel import device_batch
+    from h263_tpu_torch.parser import automaton_cuda
 
     marks, recon_ev = {}, []
 
@@ -629,8 +662,9 @@ def split_calls(torch, dec, call, tag, n=3):
         e.record()
         return e
 
-    prep, parse, recon = (dec._prep, device_batch.parse_assemble_cuda,
-                          device_batch.reconstruct_from_dense)
+    shard = dec._shards[0]
+    prep, parse, recon = (shard.prep, automaton_cuda.parse_assemble_cuda,
+                          automaton_cuda.reconstruct_from_dense)
 
     class TimedPrep:
         def __getattr__(self, name):
@@ -654,9 +688,9 @@ def split_calls(torch, dec, call, tag, n=3):
         recon_ev.append(event())
         return out
 
-    dec._prep = TimedPrep()
-    device_batch.parse_assemble_cuda = timed_parse
-    device_batch.reconstruct_from_dense = timed_recon
+    shard.prep = TimedPrep()
+    automaton_cuda.parse_assemble_cuda = timed_parse
+    automaton_cuda.reconstruct_from_dense = timed_recon
     try:
         for _ in range(n):
             marks["prep_ms"] = 0.0
@@ -677,9 +711,9 @@ def split_calls(torch, dec, call, tag, n=3):
                 f"{auto:.2f} ms, reconstruct {rec} ms, remainder "
                 f"{rest:.2f} ms")
     finally:
-        dec._prep = prep
-        device_batch.parse_assemble_cuda = parse
-        device_batch.reconstruct_from_dense = recon
+        shard.prep = prep
+        automaton_cuda.parse_assemble_cuda = parse
+        automaton_cuda.reconstruct_from_dense = recon
 
 
 def profile_step(torch, dec, bufs):
@@ -1591,17 +1625,18 @@ def fourv_corpus(seed: int, n_frames: int):
 
 class D24Probe:
     """Stands in for the host decoder's two reconstructions from the fused
-    transport (`parallel/batch.py`) while installed: passes every call on,
+    transport (`decoder/reconstruct.py`, reached through
+    `shard_reconstruct_fn`) while installed: passes every call on,
     after holding the unpack kernel against its plain version on the call's
     own rows (slim and full fused rows, and the flip step's entries).  The
     comparison's launch is not counted."""
 
     def __init__(self, torch):
-        from h263_tpu_torch.parallel import batch
+        from h263_tpu_torch.decoder import reconstruct as recon_mod
 
-        self.torch, self.mod = torch, batch
-        self.fns = (batch.reconstruct_frame_packed_d24_fused,
-                    batch.reconstruct_frame_packed_d24)
+        self.torch, self.mod = torch, recon_mod
+        self.fns = (recon_mod.reconstruct_frame_packed_d24_fused,
+                    recon_mod.reconstruct_frame_packed_d24)
         self.err, self.calls = 0, {"slim": 0, "full": 0, "entries": 0}
 
     def __enter__(self):
@@ -1995,15 +2030,15 @@ def std_lanes(streams, mq):
 
 
 class AutomatonRecorder:
-    """Stands in for `device_batch.parse_assemble_cuda` while installed:
+    """Stands in for `automaton_cuda.parse_assemble_cuda` while installed:
     passes every call on and keeps each call's payload, meta and outputs,
     for holding the kernel against its plain version afterwards."""
 
     def __init__(self):
-        from h263_tpu_torch.parallel import device_batch
+        from h263_tpu_torch.parser import automaton_cuda
 
-        self.mod, self.fn, self.calls = device_batch, \
-            device_batch.parse_assemble_cuda, []
+        self.mod, self.fn, self.calls = automaton_cuda, \
+            automaton_cuda.parse_assemble_cuda, []
 
     def __enter__(self):
         self.mod.parse_assemble_cuda = self
@@ -2075,7 +2110,7 @@ def split_std_step(torch, dec, bufs, tag, n=3):
     and CUDA events around the kernels the step launches (the automaton, or
     the unpack, and the reconstruction), with the wall time around it."""
     from h263_tpu_torch.decoder import reconstruct as rec
-    from h263_tpu_torch.parallel import device_batch
+    from h263_tpu_torch.parser import automaton_cuda
     from h263_tpu_torch.utils import trace
 
     spans = []
@@ -2091,11 +2126,11 @@ def split_std_step(torch, dec, bufs, tag, n=3):
             return out
         return call
 
-    saved = (device_batch.parse_assemble_cuda,
-             device_batch.reconstruct_from_dense, rec.d24_to_dense_cuda,
+    saved = (automaton_cuda.parse_assemble_cuda,
+             automaton_cuda.reconstruct_from_dense, rec.d24_to_dense_cuda,
              rec.reconstruct_from_dense)
-    device_batch.parse_assemble_cuda = timed(saved[0])
-    device_batch.reconstruct_from_dense = timed(saved[1])
+    automaton_cuda.parse_assemble_cuda = timed(saved[0])
+    automaton_cuda.reconstruct_from_dense = timed(saved[1])
     rec.d24_to_dense_cuda = timed(saved[2])
     rec.reconstruct_from_dense = timed(saved[3])
     rows = []
@@ -2120,8 +2155,8 @@ def split_std_step(torch, dec, bufs, tag, n=3):
                 f"{kern}")
     finally:
         trace.trace_enabled(False)
-        (device_batch.parse_assemble_cuda,
-         device_batch.reconstruct_from_dense, rec.d24_to_dense_cuda,
+        (automaton_cuda.parse_assemble_cuda,
+         automaton_cuda.reconstruct_from_dense, rec.d24_to_dense_cuda,
          rec.reconstruct_from_dense) = saved
     return rows
 
@@ -3082,30 +3117,560 @@ def phase_single(torch, root, streams, digests, rng):
     return launches, err
 
 
-def main() -> int:
-    import torch
+# -- phase 14: stream sharding over a mesh of cards ---------------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
-    from h263_tpu_torch import kernels, native
+MESH_LOOPS = 3            # GOPs of a back-to-back loop of phase 14
+
+
+def sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def on_first(torch, x):
+    """A decoder's output on cuda:0 (StreamShards gathered)."""
+    from h263_tpu_torch import StreamShards
+
+    return x.gather("cuda:0") if isinstance(x, StreamShards) else x
+
+
+def mesh_lists(streams, S, n_shards, damage=True):
+    """(lane names, the GOP's lists of S buffers, damaged lanes) for a mesh
+    of `n_shards` shards: in every shard, local lanes 1-2 carry the ffmpeg
+    fixture, 3-4 the FMA sequence, the rest the 16 CIF corpora cycled.
+    With `damage`, every shard's first lane is cut and its last lane
+    byte-flipped after the header in every P-frame, and the last shard's
+    lane 5 is a header reject in frame 5."""
+    k = S // n_shards
+    names = ["fixture" if i % k in (1, 2) else "fma" if i % k in (3, 4)
+             else f"c{i % k % N_CORPORA}" for i in range(S)]
+    lists = [[streams[n][t] for n in names] for t in range(GOP)]
+    damaged = set()
+    if damage:
+        rng = np.random.default_rng(SEED + 14)
+        for lo in range(0, S, k):
+            damaged |= {lo, lo + k - 1}
+            for t in range(1, GOP):
+                f = lists[t][lo]
+                lists[t][lo] = f[:len(f) // 2]
+                b = bytearray(lists[t][lo + k - 1])
+                b[int(rng.integers(8, len(b)))] ^= int(rng.integers(1, 256))
+                lists[t][lo + k - 1] = bytes(b)
+        damaged.add(S - k + 5)
+        lists[5][S - k + 5] = b"\x00\x01garbage"
+    return names, lists, damaged
+
+
+def mesh_sampled(mesh):
+    """Undamaged lanes of every shard covering every stream: local lanes
+    1 (fixture), 3 (FMA) and 8-23 (the 16 corpora)."""
+    return [k * S_MAIN + j for k in range(mesh.size)
+            for j in (1, 3, *range(8, 8 + N_CORPORA))]
+
+
+def check_digests(torch, planes, names, sampled, digests, t, tag):
+    idx = torch.tensor(sampled, device="cuda:0")
+    kept = [p.index_select(0, idx).cpu().numpy() for p in planes]
+    from h263_tpu_torch.testing.corpora import planes_digest
+
+    for j, lane in enumerate(sampled):
+        if planes_digest(*(q[j] for q in kept)) != \
+                digests[names[lane]]["planes"][t]:
+            fail(f"{tag}: lane {lane} frame {t} differs from the reference "
+                 f"digest")
+
+
+class Counted:
+    """Launch counts summed over the runs it wraps (the main path's runs of
+    phase 14): each run sets every count to 0 just before it and reads the
+    counts just after it, so comparison launches in between are left
+    out."""
+
+    def __init__(self, torch):
+        self.torch, self.total = torch, {}
+
+    @contextlib.contextmanager
+    def run(self):
+        sync_all(self.torch)
+        reset_launches()
+        yield
+        sync_all(self.torch)
+        for k, n in read_launches().items():
+            self.total[k] = self.total.get(k, 0) + n
+
+
+def decode_or_error(dec, bufs, **kw):
+    """decode_step's outputs, or (class, message) of its H263Error."""
+    from h263_tpu_torch.types import H263Error
+
+    try:
+        return dec.decode_step(bufs, **kw), None
+    except H263Error as e:
+        return None, (type(e).__name__, str(e))
+
+
+def mesh_device(torch, mesh, tag, streams, digests, counted):
+    """(b): DeviceFrontendDecoder over the mesh against an unsharded one on
+    cuda:0 at every frame (planes, statuses, the raised error), in windows
+    of 4 too, present_rgba, and the sampled lanes' digests."""
+    from h263_tpu_torch import DeviceFrontendDecoder, StreamShards
+    from h263_tpu_torch.testing.corpora import rgba_digest
+    from h263_tpu_torch.types import H263Error
+
+    S = S_MAIN * mesh.size
+    names, lists, damaged = mesh_lists(streams, S, mesh.size)
+    sampled = mesh_sampled(mesh)
+    ref = DeviceFrontendDecoder(S, W, H, device="cuda:0")
+    want = []
+    for bufs in lists:
+        _, err = decode_or_error(ref, bufs)
+        want.append(((ref.ref_y, ref.ref_cb, ref.ref_cr), ref.last_status,
+                     err))
+    want_rgba = ref.present_rgba(deblock=True)
+    del ref
+    dec = DeviceFrontendDecoder(S, W, H, mesh=mesh)
+    errors = []
+    with counted.run():
+        for t, bufs in enumerate(lists):
+            _, err = decode_or_error(dec, bufs)
+            if not isinstance(dec.ref_y, StreamShards) or \
+                    dec.ref_y.devices != mesh.devices:
+                fail(f"mesh {tag}: the planes are not sharded over the mesh")
+            planes = [on_first(torch, p)
+                      for p in (dec.ref_y, dec.ref_cb, dec.ref_cr)]
+            (wy, wcb, wcr), wst, werr = want[t]
+            if err != werr:
+                fail(f"mesh {tag}: frame {t} raised {err}, the unsharded "
+                     f"decoder {werr}")
+            if not all(torch.equal(a, b)
+                       for a, b in zip(planes, (wy, wcb, wcr))):
+                fail(f"mesh {tag}: frame {t}'s planes differ from the "
+                     f"unsharded decoder's")
+            st = on_first(torch, dec.last_status)
+            if not torch.equal(st, wst):
+                fail(f"mesh {tag}: frame {t}'s statuses differ")
+            if t and not bool((st.index_select(0, torch.tensor(
+                    sorted(damaged), device="cuda:0")) != 0).any()):
+                fail(f"mesh {tag}: frame {t}: no damaged lane errored")
+            check_digests(torch, planes, names, sampled, digests, t,
+                          f"mesh {tag}")
+            errors += [err] if err else []
+        rgba = on_first(torch, dec.present_rgba(deblock=True))
+    if not torch.equal(rgba, want_rgba):
+        fail(f"mesh {tag}: present_rgba differs from the unsharded "
+             f"decoder's")
+    rgba_s = rgba.index_select(0, torch.tensor(sampled, device="cuda:0"))
+    for j, lane in enumerate(sampled):
+        if rgba_digest(rgba_s[j].cpu().numpy()) != \
+                digests[names[lane]]["rgba"][-1]:
+            fail(f"mesh {tag}: lane {lane} RGBA differs from the reference "
+                 f"digest")
+    if errors != [w[2] for w in want if w[2]] or len(errors) != 1 or \
+            f"stream {S - S_MAIN + 5}" not in errors[0][1]:
+        fail(f"mesh {tag}: the header reject raised {errors}")
+    del want, want_rgba, rgba
+
+    # Windows of 4, against the unsharded decoder's windows.
+    wref = DeviceFrontendDecoder(S, W, H, device="cuda:0")
+    wdec = DeviceFrontendDecoder(S, W, H, mesh=mesh)
+    for w0 in range(0, GOP, 4):
+        outs = []
+        for d in (wref, wdec):
+            try:
+                # The frames of a window that raised are not returned: its
+                # last frame's planes are the decoder's references.
+                planes = d.decode_steps(lists[w0:w0 + 4])
+                err = None
+            except H263Error as e:
+                planes = (d.ref_y, d.ref_cb, d.ref_cr)
+                err = (type(e).__name__, str(e))
+            outs.append((err, on_first(torch, d.last_status_steps),
+                         [on_first(torch, p) for p in planes]))
+        if wdec.last_status_steps.axis != 1:
+            fail(f"mesh {tag}: a window's statuses are not split along the "
+                 f"stream axis")
+        (e0, s0, p0), (e1, s1, p1) = outs
+        if e0 != e1 or not torch.equal(s0, s1) or not all(
+                torch.equal(a, b) for a, b in zip(p0, p1)):
+            fail(f"mesh {tag}: the window of frames {w0}-{w0 + 3} differs "
+                 f"from the unsharded decoder's ({e0} / {e1})")
+    if wref.fetch_status().tolist() != wdec.fetch_status().tolist():
+        fail(f"mesh {tag}: fetch_status differs after the windows")
+    log(f"mesh {tag}: DeviceFrontendDecoder({S}, {W}, {H}, mesh) over {GOP} "
+        f"frames equal to the unsharded decoder on cuda:0 at every frame "
+        f"(planes, statuses, the raised {errors[0][0]} with its global "
+        f"stream {S - S_MAIN + 5}), in windows of 4 too, present_rgba "
+        f"equal; {len(sampled)} sampled lanes equal the reference digests; "
+        f"{len(damaged)} damaged lanes at the shards' edges")
+
+
+def mesh_host(torch, mesh, tag, streams, counted):
+    """(c): BatchedStreamDecoder over the mesh equal at every frame to the
+    device front-end over the mesh on clean lanes (the dry run's
+    devfe-vs-host check), with a forced MV-row flip and a PackOverflow
+    replay."""
+    from h263_tpu_torch import BatchedStreamDecoder, DeviceFrontendDecoder
+    from h263_tpu_torch.utils import trace
+
+    S = S_MAIN * mesh.size
+    _, lists, _ = mesh_lists(streams, S, mesh.size, damage=False)
+    fourv = [fourv_corpus(SEED + 20 + k, 4) for k in range(4)]
+    flip_lists = [[fourv[(i // 8) % 4][t] if i % 8 == 3 else lists[t][i]
+                   for i in range(S)] for t in range(4)]
+
+    def device_planes(frame_lists):
+        dec = DeviceFrontendDecoder(S, W, H, mesh=mesh)
+        out = [[on_first(torch, p).clone() for p in dec.decode_step(b)]
+               for b in frame_lists]
+        return out, on_first(torch, dec.present_rgba(deblock=True))
+
+    want, want_rgba = device_planes(lists)
+    host = BatchedStreamDecoder(S, W, H, mesh=mesh)
+    with counted.run():
+        for t, bufs in enumerate(lists):
+            got = [on_first(torch, p) for p in host.decode_step(bufs)]
+            if not all(torch.equal(a, b) for a, b in zip(got, want[t])):
+                fail(f"mesh {tag} host: frame {t} differs from the device "
+                     f"front-end's")
+        rgba = on_first(torch, host.present_rgba(deblock=True))
+    if not torch.equal(rgba, want_rgba):
+        fail(f"mesh {tag} host: present_rgba differs")
+    before = trace.get_counters()
+    want_flip, _ = device_planes(flip_lists)
+    fdec = BatchedStreamDecoder(S, W, H, mesh=mesh)
+    odec = BatchedStreamDecoder(S, W, H, pack_cap=2048, mesh=mesh)
+    with counted.run():
+        for t, bufs in enumerate(flip_lists):
+            got = [on_first(torch, p) for p in fdec.decode_step(bufs)]
+            if not all(torch.equal(a, b) for a, b in zip(got, want_flip[t])):
+                fail(f"mesh {tag} host: flip set frame {t} differs")
+        for t in range(3):
+            got = [on_first(torch, p) for p in odec.decode_step(lists[t])]
+            if not all(torch.equal(a, b) for a, b in zip(got, want[t])):
+                fail(f"mesh {tag} host: pack_cap=2048 frame {t} differs")
+    after = trace.get_counters()
+    rose = {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("steps_fused_flip", "pack_overflow_fallbacks")}
+    if min(rose.values()) < 1 or not fdec._mv_full:
+        fail(f"mesh {tag} host: the flip or the PackOverflow replay was not "
+             f"exercised ({rose})")
+    log(f"mesh {tag}: BatchedStreamDecoder({S}, {W}, {H}, mesh) equal to the "
+        f"device front-end over the mesh at every frame of the GOP and in "
+        f"present_rgba; an MV-row flip set over 4 frames and pack_cap=2048 "
+        f"over 3 frames equal too; counters rose {rose}")
+
+
+def mesh_standard(torch, mesh, tag, streams, digests, counted):
+    """(d): a standard-H.263 GOP (DecoderOption.NONE) on both mesh
+    decoders, against the unsharded device front-end on cuda:0."""
+    from h263_tpu_torch import BatchedStreamDecoder, DeviceFrontendDecoder
+    from h263_tpu_torch.types import DecoderOption
+
+    NONE = DecoderOption.NONE
+    S = S_MAIN * mesh.size
+    names = [f"s{(i // 8) % N_STD}" for i in range(S)]
+    lists = [[streams[n][t] for n in names] for t in range(GOP)]
+    sampled = [8 * m for m in range(N_STD)] + [S - 1]
+    decs = [DeviceFrontendDecoder(S, W, H, NONE, device="cuda:0"),
+            DeviceFrontendDecoder(S, W, H, NONE, mesh=mesh),
+            BatchedStreamDecoder(S, W, H, NONE, mesh=mesh)]
+    for t, bufs in enumerate(lists):
+        want = [p.clone() for p in decs[0].decode_step(bufs)]
+        check_digests(torch, want, names, sampled, digests, t,
+                      f"mesh {tag} standard")
+        with counted.run():
+            got = [[on_first(torch, p) for p in d.decode_step(bufs)]
+                   for d in decs[1:]]
+        for d, g in zip(decs[1:], got):
+            if not all(torch.equal(a, b) for a, b in zip(g, want)):
+                fail(f"mesh {tag} standard: {type(d).__name__} frame {t} "
+                     f"differs from the unsharded device front-end")
+    log(f"mesh {tag}: standard H.263 at S={S} CIF, both mesh decoders equal "
+        f"to the unsharded device front-end at every frame; "
+        f"{len(sampled)} sampled lanes equal the reference digests")
+
+
+def mesh_split(torch, mesh, tag, streams):
+    """(f) Where a mesh P-step's host time goes: each shard's prep and
+    copy, then each shard's dispatch (host clock; CUDA events around each
+    shard's device work on its card)."""
+    from h263_tpu_torch import BatchedStreamDecoder, DeviceFrontendDecoder
+    from h263_tpu_torch.decoder import reconstruct as rec
+    from h263_tpu_torch.parser import automaton_cuda
+
+    S = S_MAIN * mesh.size
+    _, lists, _ = mesh_lists(streams, S, mesh.size, damage=False)
+    dec = DeviceFrontendDecoder(S, W, H, mesh=mesh)
+    for bufs in lists[:-1]:
+        dec.decode_step(bufs)
+    stage, step = dec._stage_step, automaton_cuda.whole_step
+    marks = {"prep": [], "dispatch": [], "events": []}
+
+    def timed_stage(sh, bufs):
+        t0 = time.perf_counter()
+        out = stage(sh, bufs)
+        marks["prep"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_step(payload, *args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(payload.device):
+            a.record()
+            t0 = time.perf_counter()
+            out = step(payload, *args, **kw)
+            marks["dispatch"].append((time.perf_counter() - t0) * 1e3)
+            b.record()
+        marks["events"].append((a, b))
+        return out
+
+    dec._stage_step = timed_stage
+    automaton_cuda.whole_step = timed_step
+    try:
+        for _ in range(3):
+            for v in marks.values():
+                v.clear()
+            sync_all(torch)
+            t0 = time.perf_counter()
+            dec.decode_step(lists[-1])
+            sync_all(torch)
+            wall = (time.perf_counter() - t0) * 1e3
+            dev = [a.elapsed_time(b) for a, b in marks["events"]]
+            log(f"mesh {tag} split: a P-step {wall:.2f} ms wall; per shard, "
+                f"host prep + copy ms {[round(x, 3) for x in marks['prep']]}"
+                f", dispatch ms {[round(x, 3) for x in marks['dispatch']]}, "
+                f"device ms (automaton + reconstruct) "
+                f"{[round(x, 3) for x in dev]}")
+    finally:
+        del dec._stage_step
+        automaton_cuda.whole_step = step
+
+    # The host front-end's mesh step: the one parse, then each shard's
+    # copy and dispatch (unpack + reconstruct).
+    fused = rec.reconstruct_frame_packed_d24_fused
+    marks = {"dispatch": []}
+
+    def timed_fused(buf, *args, **kw):
+        t0 = time.perf_counter()
+        out = fused(buf, *args, **kw)
+        marks["dispatch"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    rec.reconstruct_frame_packed_d24_fused = timed_fused
+    try:
+        host = BatchedStreamDecoder(S, W, H, mesh=mesh)
+        for bufs in lists[:-1]:
+            host.decode_step(bufs)
+        parse, transfer = host.parse_batch_packed, host._transfer
+
+        def timed_parse(*args, **kw):
+            t0 = time.perf_counter()
+            parse(*args, **kw)
+            marks["parse"] = (time.perf_counter() - t0) * 1e3
+
+        def timed_transfer(*args, **kw):
+            t0 = time.perf_counter()
+            out = transfer(*args, **kw)
+            marks["transfer"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        host.parse_batch_packed, host._transfer = timed_parse, timed_transfer
+        for _ in range(3):
+            marks["dispatch"].clear()
+            sync_all(torch)
+            t0 = time.perf_counter()
+            host.decode_step(lists[-1])
+            sync_all(torch)
+            wall = (time.perf_counter() - t0) * 1e3
+            log(f"mesh {tag} host split: a P-step {wall:.2f} ms wall; the "
+                f"native parse of {S} frames {marks['parse']:.2f} ms, the "
+                f"shards' copies enqueued {marks['transfer']:.3f} ms, per "
+                f"shard dispatch ms "
+                f"{[round(x, 3) for x in marks['dispatch']]}")
+    finally:
+        rec.reconstruct_frame_packed_d24_fused = fused
+
+
+def mesh_rates(torch, meshes, streams):
+    """(f) Back-to-back frames/s of each mesh and of the unsharded decoder
+    at the same S, in turns: on one card the cost of sharding, over
+    several the scaling."""
+    from h263_tpu_torch import BatchedStreamDecoder, DeviceFrontendDecoder
+
+    for tag, mesh in meshes:
+        S = S_MAIN * mesh.size
+        _, lists, _ = mesh_lists(streams, S, mesh.size, damage=False)
+        decs = {}
+        for kind, cls in (("device", DeviceFrontendDecoder),
+                          ("host", BatchedStreamDecoder)):
+            decs[(kind, "mesh")] = cls(S, W, H, mesh=mesh)
+            decs[(kind, "unsharded")] = cls(S, W, H, device="cuda:0")
+        rates = {k: [] for k in decs}
+        for kind in ("device", "host"):
+            loops = MESH_LOOPS if kind == "device" else 1
+            for which in ("mesh", "unsharded", "unsharded", "mesh"):
+                dec = decs[(kind, which)]
+                sync_all(torch)
+                t0 = time.perf_counter()
+                for _ in range(loops):
+                    for bufs in lists:
+                        dec.decode_step(bufs)
+                sync_all(torch)
+                rates[(kind, which)].append(round(
+                    loops * GOP * S / (time.perf_counter() - t0), 1))
+        log(f"mesh {tag} rates: back to back, S={S} CIF, frames/s in turns "
+            f"(mesh, unsharded, unsharded, mesh): device front-end mesh "
+            f"{rates[('device', 'mesh')]}, unsharded on cuda:0 "
+            f"{rates[('device', 'unsharded')]}; host front-end mesh "
+            f"{rates[('host', 'mesh')]}, unsharded "
+            f"{rates[('host', 'unsharded')]}")
+        del decs
+
+
+def second_card(torch, streams, rng):
+    """(e) With two cards or more: decoders on cuda:1 equal cuda:0's at
+    every frame (cuda:0 current), and each kernel's launch on cuda:1 equal
+    to its plain version (not counted)."""
+    from h263_tpu_torch import (BatchedStreamDecoder, DeviceFrontendDecoder,
+                                H263Decoder)
+    from h263_tpu_torch.native import DevicePrepBatch
+    from h263_tpu_torch.ops import (d24_cuda, deblock_cuda, idct_cuda,
+                                    present_cuda, reconstruct_cuda, yuv_cuda)
+    from h263_tpu_torch.ops.d24 import unpack_fused
+    from h263_tpu_torch.ops.deblock import deblock_batched
+    from h263_tpu_torch.ops.idct import idct_residual_fused
+    from h263_tpu_torch.ops.present import present_rgba_plain
+    from h263_tpu_torch.ops.reconstruct import reconstruct_from_dense_plain
+    from h263_tpu_torch.ops.yuv import yuv420_to_rgba
+    from h263_tpu_torch.parser import automaton_cuda
+    from h263_tpu_torch.parser import device_frontend as tdf
+    from h263_tpu_torch.testing.corpora import d24_rows
+    from h263_tpu_torch.types import DecoderOption
+
+    one = torch.device("cuda:1")
+    if torch.cuda.current_device() != 0:
+        fail("cuda:0 is not the current device")
+    for cls in (DeviceFrontendDecoder, BatchedStreamDecoder):
+        # The host front-end refuses a step with a damaged lane whole.
+        _, lists, _ = mesh_lists(streams, S_MAIN, 1,
+                                 damage=cls is DeviceFrontendDecoder)
+        decs = [cls(S_MAIN, W, H, device=d) for d in ("cuda:0", "cuda:1")]
+        for t, bufs in enumerate(lists):
+            outs = [decode_or_error(d, bufs) for d in decs]
+            if outs[0][1] != outs[1][1]:
+                fail(f"cuda:1 {cls.__name__}: frame {t} raised "
+                     f"{outs[1][1]}, cuda:0 {outs[0][1]}")
+            planes = [[p.to("cuda:0") for p in (d.ref_y, d.ref_cb, d.ref_cr)]
+                      for d in decs]
+            if decs[1].ref_y.device != one or not all(
+                    torch.equal(a, b) for a, b in zip(*planes)):
+                fail(f"cuda:1 {cls.__name__}: frame {t} differs from cuda:0")
+    singles = [H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM, device=d)
+               for d in ("cuda:0", "cuda:1")]
+    for t, buf in enumerate(streams["fixture"]):
+        pics = [d.decode_next_picture(buf) for d in singles]
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(pics[0].as_yuv(), pics[1].as_yuv())):
+            fail(f"cuda:1 H263Decoder: frame {t} differs from cuda:0")
+
+    errs = {}
+    c = torch.as_tensor(idct_blocks(4096, rng).reshape(-1, 64))
+    errs["idct_residual"] = max_err(torch, idct_cuda.idct_residual_cuda(
+        c.to(one)).cpu(), idct_residual_fused(c))
+    S, (h, w) = 16, ODD
+    mbh, mbw = -(-h // 16), -(-w // 16)
+    dense = torch.as_tensor(rng.integers(-300, 300, (S, 6 * mbh * mbw, 64))
+                            .astype(np.int16))
+    dense[:, ::2] = 0
+    mvs = torch.as_tensor(rng.integers(-40, 41, (S, mbh, mbw, 4, 2))
+                          .astype(np.int16))
+    inter = torch.as_tensor(rng.random((S, mbh, mbw)) < 0.7)
+    planes = [torch.as_tensor(blocky_planes(rng, S, *hw))
+              for hw in plane_shapes(h, w)]
+    args = (dense, mvs, inter, *planes)
+    got = reconstruct_cuda.reconstruct_from_dense_cuda(
+        *(a.to(one) for a in args))
+    errs["reconstruct"] = max(max_err(torch, a.cpu(), b) for a, b in zip(
+        got, reconstruct_from_dense_plain(*args)))
+    strength = torch.as_tensor(rng.integers(0, 13, S).astype(np.int32))
+    apply = torch.as_tensor(rng.random(S) < 0.7)
+    errs["deblock"] = max_err(torch, deblock_cuda.deblock_batched_cuda(
+        planes[0].to(one), strength.to(one), apply.to(one)).cpu(),
+        deblock_batched(planes[0], strength, apply))
+    errs["yuv420_to_rgba"] = max_err(torch, yuv_cuda.yuv420_to_rgba_cuda(
+        *(p.to(one) for p in planes)).cpu(), yuv420_to_rgba(*planes))
+    errs["present_rgba"] = max_err(torch, present_cuda.present_rgba_cuda(
+        *(p.to(one) for p in planes), strength.to(one), apply.to(one)).cpu(),
+        present_rgba_plain(*planes, strength, apply))
+    rows = torch.as_tensor(d24_rows(rng, S, 900, mbh, mbw, True))
+    errs["d24_unpack"] = max(max_err(torch, a.cpu(), b) for a, b in zip(
+        d24_cuda.unpack_fused_cuda(rows.to(one), mbh, mbw, True),
+        unpack_fused(rows, mbh, mbw, True)))
+    frames = [streams[f"q{k % N_QCIF_CORPORA}"][k % GOP] for k in range(16)]
+    frames[5] = frames[5][:len(frames[5]) // 2]
+    prep = DevicePrepBatch(len(frames), 176, 144)
+    total = sum(((len(f) + 3) // 4) * 4 for f in frames)
+    stage = np.zeros((total // 4 + 1, 4), np.uint8)
+    meta = np.zeros((6, len(frames)), np.int32)
+    prep.prepare_ragged(frames, stage, meta)
+    stage, meta = torch.as_tensor(stage), torch.as_tensor(meta)
+    got = automaton_cuda.parse_assemble_cuda(stage.to(one), meta.to(one),
+                                             mbh=9, mbw=11)
+    want = tdf.parse_assemble(stage, meta, mbh=9, mbw=11)
+    errs["entropy_automaton"] = max(max_err(torch, a.cpu().to(b.dtype), b)
+                                    for a, b in zip(got, want))
+    if torch.cuda.current_device() != 0 or any(errs.values()):
+        fail(f"kernels on cuda:1 against their plain versions: {errs}")
+    log(f"cuda:1: DeviceFrontendDecoder ({S_MAIN} CIF streams, damaged "
+        f"lanes), BatchedStreamDecoder (clean lanes) and H263Decoder (the "
+        f"CIF fixture) equal "
+        f"cuda:0's at every frame with cuda:0 current; every kernel on "
+        f"cuda:1 equals its plain version (max |error| {errs})")
+
+
+def phase_mesh(torch, streams, digests, rng):
+    """Phase 14: both batched decoders over a mesh, a two-shard mesh on
+    cuda:0 and, with two cards or more, a mesh over every card; returns the
+    launches of its main-path runs."""
+    from h263_tpu_torch import make_stream_mesh
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    meshes = [("2 shards on cuda:0", make_stream_mesh(["cuda:0", "cuda:0"]))]
+    if n_cards >= 2:
+        meshes.append((f"{n_cards} cards", make_stream_mesh()))
+    for tag, mesh in meshes:
+        log(f"mesh {tag}: {mesh.size} shards of {S_MAIN} CIF streams over "
+            f"{mesh.distinct} distinct card(s) "
+            f"({', '.join(map(str, mesh.devices))})")
+    plain = {k: v[2] for k, v in streams.items()}
+    counted = Counted(torch)
+    for tag, mesh in meshes:
+        mesh_device(torch, mesh, tag, plain, digests, counted)
+        mesh_host(torch, mesh, tag, plain, counted)
+        mesh_standard(torch, mesh, tag, plain, digests, counted)
+    log(f"mesh: launches of the mesh decoders' runs {counted.total}")
+    if min(counted.total[k] for k in ("entropy_automaton", "reconstruct",
+                                      "present_rgba", "d24_unpack")) < 1:
+        fail("a kernel of the mesh paths was not launched")
+    if n_cards >= 2:
+        second_card(torch, plain, rng)
+    else:
+        log("mesh: one card on this machine: the mesh over every card and "
+            "the cuda:1 checks do not run")
+    for tag, mesh in meshes:
+        mesh_split(torch, mesh, tag, plain)
+    mesh_rates(torch, meshes, plain)
+    log(f"phase 14 done in {time.perf_counter() - t_phase:.1f} s")
+    return counted.total
+
+
+def load_streams(root):
+    """(streams: name -> (width, height, frames), the CIF fixture's golden
+    luma, the reference digests) of every phase."""
     from h263_tpu_torch.testing import corpora as C
 
-    smi = nvidia_smi_line()
-    log(f"env: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}; host: {host_cpus()}")
-
-    t0 = time.perf_counter()
-    kernels.lib()
-    native.lib()
-    log(f"build: kernels + native library ready in "
-        f"{time.perf_counter() - t0:.1f} s (nvcc {kernels.last_build_seconds})")
-
-    rng = np.random.default_rng(SEED)
-    cif = [C.cif_corpus(k) for k in range(N_CORPORA)]
-    streams = {f"c{k}": (W, H, cif[k]) for k in range(N_CORPORA)}
+    streams = {f"c{k}": (W, H, C.cif_corpus(k)) for k in range(N_CORPORA)}
     streams.update({f"q{k}": (176, 144, C.qcif_corpus(k))
                     for k in range(N_QCIF_CORPORA)})
     fix = os.path.join(root, "tests", "fixtures")
@@ -3124,7 +3689,68 @@ def main() -> int:
     missing = sorted(set(streams) - set(digests))
     if missing:
         fail(f"no reference digests for {missing}")
+    return streams, golden, digests
 
+
+# Run with a checkout as the working directory: that checkout's own
+# `split_calls` over its own decoder, as phase 5 splits a P-step.
+SPLIT_CHILD = """
+import sys, torch
+import chip_smoke
+from h263_tpu_torch import DeviceFrontendDecoder
+from h263_tpu_torch.testing import corpora as C
+gops = [C.cif_corpus(k) for k in range(16)]
+lists = [[gops[i % 16][t] for i in range(1024)] for t in range(8)]
+dec = DeviceFrontendDecoder(1024, 352, 288, device="cuda")
+for bufs in lists:
+    dec.decode_step(bufs)
+chip_smoke.split_calls(torch, dec, lambda: dec.decode_step(lists[-1]),
+                       "one P-frame step", n=int(sys.argv[1]))
+"""
+
+
+def split_ab(dirs, n=10) -> int:
+    """The one-card main path of several checkouts, in the order given
+    (for an A/B: parent, change, change, parent): in each, a P-step of
+    DeviceFrontendDecoder(1024, 352, 288) split by that checkout's own
+    `split_calls` (n rounds), then its `kernels/reconstruct_time.py`."""
+    log(nvidia_smi_line())
+    for d in dirs:
+        log(f"== {d}")
+        for cmd in ([sys.executable, "-c", SPLIT_CHILD, str(n)],
+                    [sys.executable, "-m",
+                     "h263_tpu_torch.kernels.reconstruct_time"]):
+            subprocess.run(cmd, cwd=d, check=True, timeout=900)
+    return 0
+
+
+def main() -> int:
+    """With no arguments, every phase on one card.  `--split-ab DIR...`
+    instead runs `split_ab` over the checkouts DIR...."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if sys.argv[1:2] == ["--split-ab"]:
+        return split_ab(sys.argv[2:])
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from h263_tpu_torch import kernels, native
+
+    smi = nvidia_smi_line()
+    log(f"env: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}; host: {host_cpus()}")
+
+    t0 = time.perf_counter()
+    kernels.lib()
+    native.lib()
+    log(f"build: kernels + native library ready in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc {kernels.last_build_seconds})")
+
+    rng = np.random.default_rng(SEED)
+    streams, golden, digests = load_streams(root)
+    cif = [streams[f"c{k}"][2] for k in range(N_CORPORA)]
     records = [phase_idct(torch, rng), phase_automaton(torch, cif, rng)]
     real, real_present = phase_decoder(
         torch, {k: v[2] for k, v in streams.items()}, golden, digests)
@@ -3153,8 +3779,9 @@ def main() -> int:
         for k, n in more.items():
             launches[k] += n
     single, resize_err = phase_single(torch, root, streams, digests, rng)
-    for k, n in single.items():
-        launches[k] += n
+    for more in (single, phase_mesh(torch, streams, digests, rng)):
+        for k, n in more.items():
+            launches[k] += n
     for r in records:
         if r["name"] == "reconstruct":
             r["max_abs_err"] = max(r["max_abs_err"], resize_err)

@@ -26,10 +26,12 @@ one lockstep bucket of the device front-end; and
 `BatchedStreamDecoder(n_streams, width, height)`, one bucket of the host
 front-end (the native entropy decoder on the host's cores, the delta24
 transport unpacked on the card by `csrc/d24.cu`); the last three are
-Sorenson by default.  Around them: `io.stream` (incremental stream input),
-`utils.checkpoint` (suspend and resume every decoding surface, in the JAX
-package's v2 format) and `python -m h263_tpu_torch` (decode, info,
-selftest).
+Sorenson by default; the last two also decode sharded over several
+devices (`mesh=make_stream_mesh(...)`, `parallel/sharding.py`).  Around
+them: `io.stream` (incremental stream input), `utils.checkpoint`
+(suspend and resume every decoding surface, in the JAX package's v2
+format), `python -m h263_tpu_torch` (decode, info, selftest) and the
+examples (`python -m h263_tpu_torch.examples.<name>`).
 """
 
 from .types import (
@@ -50,6 +52,14 @@ from .decoder import DecodedPicture, H263Decoder
 from .parallel.batch import BatchedStreamDecoder
 from .parallel.device_batch import DeviceFrontendDecoder
 from .parallel.pool import StreamPool
+from .parallel.sharding import (
+    StreamMesh,
+    StreamShards,
+    make_stream_mesh,
+    shard_device_frontend_fn,
+    shard_present_fn,
+    shard_reconstruct_fn,
+)
 
 __version__ = "0.1.0"
 
@@ -70,6 +80,12 @@ __all__ = [
     "SliceSubmode",
     "SourceFormat",
     "SourceFormatKind",
+    "StreamMesh",
     "StreamPool",
+    "StreamShards",
     "__version__",
+    "make_stream_mesh",
+    "shard_device_frontend_fn",
+    "shard_present_fn",
+    "shard_reconstruct_fn",
 ]

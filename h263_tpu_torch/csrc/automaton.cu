@@ -292,12 +292,23 @@ cudaError_t launch_lpw(const Args& a, int lanes_per_warp,
   return cudaErrorInvalidValue;
 }
 
+// The launch shape's inputs are kept per card (by the current device's
+// ordinal): each card of a mesh sizes its own launches.
+constexpr int kMaxCards = 64;
+
+int current_card() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxCards)
+    dev = 0;
+  return dev;
+}
+
 int sm_count() {
-  static int sms = 0;
+  static int sms_by_card[kMaxCards] = {};
+  const int dev = current_card();
+  int& sms = sms_by_card[dev];
   if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess || sms <= 0)
       sms = 132;
   }
@@ -308,18 +319,19 @@ int sm_count() {
 // them: at 69-71 a thread (ptxas, kernels/ptxas_report.py) 28 warps, so a
 // block of more than 28 lanes at 1 lane per warp (896 threads) is refused.
 int resident_warps() {
-  static int warps = 0;
+  static int warps_by_card[kMaxCards] = {};
+  const int dev = current_card();
+  int& warps = warps_by_card[dev];
   if (warps == 0) {
-    int dev = 0, per_sm = 65536, regs = 72;
+    int per_sm = 65536, regs = 72;
     cudaFuncAttributes attr;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxRegistersPerMultiprocessor,
-                             dev);
+    cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxRegistersPerMultiprocessor,
+                           dev);
     if (cudaFuncGetAttributes(&attr, automaton_kernel<1, false>) ==
             cudaSuccess && attr.numRegs > 0)
       regs = (attr.numRegs + 7) / 8 * 8;
-    warps = per_sm / (32 * regs);
-    warps = warps < 1 ? 1 : (warps > 64 ? 64 : warps);
+    const int w = per_sm / (32 * regs);
+    warps = w < 1 ? 1 : (w > 64 ? 64 : w);
   }
   return warps;
 }

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops.d24_cuda import d24_to_dense_cuda, unpack_fused_cuda
 from ..ops.present_cuda import present_rgba_cuda
 from ..ops.reconstruct import reconstruct_from_residuals  # noqa: F401
@@ -99,7 +100,7 @@ class FrameStaging:
     aligned, as the reconstruct kernel needs."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        self.device = kernels.resolve_device(device)
         self._pin = self.device.type == "cuda"
         self._bufs = [None, None]
         self._copied = [None, None]
@@ -136,9 +137,7 @@ class FrameStaging:
         with trace_stage("transfer"):
             dev = buf[:c].to(self.device, non_blocking=True, copy=True)
             if self._pin:
-                ev = torch.cuda.Event()
-                ev.record()
-                self._copied[self._i] = ev
+                self._copied[self._i] = kernels.record_event(self.device)
         return (dev[:a].view(torch.int16).view(1, 6 * nmb, 64),
                 dev[a:b].view(torch.int16).view(1, mbh, mbw, 4, 2),
                 dev[b:c].view(1, mbh, mbw))
@@ -160,8 +159,8 @@ class PresentParams:
     pinned buffer and copied with `non_blocking`; the event of the last copy
     guards the buffer's reuse, so the host never waits for the card."""
 
-    def __init__(self, n: int, device: torch.device):
-        self.n, self.device = n, device
+    def __init__(self, n: int, device):
+        self.n, self.device = n, kernels.resolve_device(device)
         self._host = torch.zeros(5 * n, dtype=torch.uint8,
                                  pin_memory=device.type == "cuda")
         self._copied = None
@@ -176,6 +175,5 @@ class PresentParams:
         host[n4:] = flags
         dev = self._host.to(self.device, non_blocking=True, copy=True)
         if self.device.type == "cuda":
-            self._copied = torch.cuda.Event()
-            self._copied.record()
+            self._copied = kernels.record_event(self.device)
         return dev[:n4].view(torch.int32), dev[n4:].view(torch.bool)

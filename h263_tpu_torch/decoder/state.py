@@ -29,8 +29,8 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
 
+from .. import kernels
 from ..bitio import BitReader
 from ..ops.deblock import QUANT_TO_STRENGTH
 from ..parser.frame import parse_frame_auto
@@ -62,12 +62,7 @@ class H263Decoder:
 
     def __init__(self, decoder_options: DecoderOption = DecoderOption.NONE,
                  *, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' requested but CUDA is not "
-                               "available")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {device!r}")
+        self.device = kernels.resolve_device(device)
         self.decoder_options = decoder_options
         self.last_picture: Optional[int] = None       # temporal reference
         self.reference_picture: Optional[int] = None  # temporal reference

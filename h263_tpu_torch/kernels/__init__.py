@@ -17,6 +17,11 @@ objects and the library are written into a temporary directory and the
 library is `os.replace`d into place.  There is no
 fallback: a missing nvcc or a failed build raises with the compiler's
 output.  Importing this module builds nothing.
+
+Every launch goes through `launch`, which makes the tensors' card current
+around the call, and every event that guards a pinned buffer is recorded
+on its card's current stream (`record_event`), so each entry point runs on
+any card of the machine (`resolve_device`), not only the current one.
 """
 
 from __future__ import annotations
@@ -189,6 +194,57 @@ def device_table(name: str, array, device):
 
 
 def stream_handle(device) -> int:
+    """The raw handle of `device`'s current stream (an indexed device)."""
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the C entry point `name` with `args` and the current stream of
+    `device` (an indexed CUDA device, the tensors' card), with that card
+    current: the launchers launch on the current device, and CUDA refuses
+    a launch into another card's stream.  Raises if it returns an error."""
+    import torch
+
+    fn = getattr(lib(), name)
+    if torch.cuda.current_device() == device.index:
+        rc = fn(*args, stream_handle(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream_handle(device))
+    check(rc, name)
+
+
+def record_event(device, enable_timing: bool = False):
+    """A CUDA event recorded on the current stream of `device` (an indexed
+    CUDA device), created with that card current."""
+    import torch
+
+    with torch.cuda.device(device):
+        ev = torch.cuda.Event(enable_timing=enable_timing)
+        ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def resolve_device(device):
+    """`device` ("cuda", "cuda:<k>", "cpu" or a torch.device) as the
+    torch.device a decoder keeps: "cuda" becomes the current card's index.
+    Raises for a CUDA device without CUDA or beyond the machine's cards,
+    and for any other type; nothing falls back to the CPU."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {device!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} requested but CUDA is "
+                           f"not available")
+    if dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"device={str(device)!r}: this machine has "
+                           f"{torch.cuda.device_count()} CUDA device(s)")
+    return dev

@@ -7,11 +7,9 @@ GOP, as chip_smoke.py's phase 5b times it).
 
 Prints the card's name and power limit, then one JSON line: the kernel's
 milliseconds per call in each round (CUDA events over 20 calls after a
-warm call).  The script uses only what the port has had since its first
-slices, so a copy of it runs in a checkout of an earlier commit too: run
-it from two checkouts in turns (earlier, later, later, earlier) on one
-card, one command after the other, to compare two versions of the
-kernel.
+warm call).  To compare two versions of the kernel, run each checkout's
+own copy in turns (earlier, later, later, earlier) on one card, one
+command after the other.
 """
 
 from __future__ import annotations
@@ -25,13 +23,13 @@ import sys
 def p_step_inputs(torch, step=3):
     """The reconstruct call's arguments of step `step` of the decoder."""
     from h263_tpu_torch import DeviceFrontendDecoder
-    from h263_tpu_torch.parallel import device_batch
+    from h263_tpu_torch.parser import automaton_cuda
     from h263_tpu_torch.testing import corpora as C
 
     gops = [C.cif_corpus(k) for k in range(16)]
     dec = DeviceFrontendDecoder(1024, 352, 288, device="cuda")
     kept = []
-    fn = device_batch.reconstruct_from_dense
+    fn = automaton_cuda.reconstruct_from_dense
 
     def keep(*args, **kwargs):
         kept.append(args)
@@ -39,11 +37,11 @@ def p_step_inputs(torch, step=3):
 
     for t in range(step + 1):
         if t == step:
-            device_batch.reconstruct_from_dense = keep
+            automaton_cuda.reconstruct_from_dense = keep
         try:
             dec.decode_step([gops[i % 16][t] for i in range(1024)])
         finally:
-            device_batch.reconstruct_from_dense = fn
+            automaton_cuda.reconstruct_from_dense = fn
     torch.cuda.synchronize()
     return kept[0]
 

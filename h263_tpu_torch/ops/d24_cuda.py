@@ -44,12 +44,12 @@ def _launch(rows, n_entries, mv_stride, mbh, mbw):
     if mv_stride:
         mvs = torch.empty((S, mbh, mbw, 4, 2), dtype=torch.int16, device=dev)
         inter = torch.empty((S, mbh, mbw), dtype=torch.uint8, device=dev)
-    rc = kernels.lib().h263_d24_unpack(
-        rows.data_ptr(), rows.stride(0), n_entries, mv_stride, S, mbh, mbw,
+    kernels.launch(
+        "h263_d24_unpack", dev, rows.data_ptr(), rows.stride(0), n_entries,
+        mv_stride, S, mbh, mbw,
         kernels.device_table("zigzag", ZIGZAG_U8, dev).data_ptr(),
         dense.data_ptr(), mvs.data_ptr() if mv_stride else None,
-        inter.data_ptr() if mv_stride else None, kernels.stream_handle(dev))
-    kernels.check(rc, "h263_d24_unpack")
+        inter.data_ptr() if mv_stride else None)
     launches += 1
     return dense, mvs, inter
 

@@ -45,9 +45,7 @@ def deblock_batched_cuda(planes: torch.Tensor, strength: torch.Tensor,
             and apply.is_contiguous()):
         raise ValueError("planes, strength and apply must be contiguous")
     out = torch.empty_like(planes)
-    rc = kernels.lib().h263_deblock(
-        planes.data_ptr(), out.data_ptr(), S, h, w, strength.data_ptr(),
-        apply.data_ptr(), kernels.stream_handle(dev))
-    kernels.check(rc, "h263_deblock")
+    kernels.launch("h263_deblock", dev, planes.data_ptr(), out.data_ptr(), S,
+                   h, w, strength.data_ptr(), apply.data_ptr())
     launches += 1
     return out

@@ -34,9 +34,7 @@ def idct_residual_cuda(dense: torch.Tensor) -> torch.Tensor:
     out = torch.empty(dense.shape, dtype=torch.int32, device=dense.device)
     n = dense.numel() // 64
     basis = kernels.device_table("idct_basis", _BASIS, dense.device)
-    rc = kernels.lib().h263_idct_residual(
-        dense.data_ptr(), out.data_ptr(), n, basis.data_ptr(),
-        kernels.stream_handle(dense.device))
-    kernels.check(rc, "h263_idct_residual")
+    kernels.launch("h263_idct_residual", dense.device, dense.data_ptr(),
+                   out.data_ptr(), n, basis.data_ptr())
     launches += 1
     return out

@@ -53,9 +53,8 @@ def present_rgba_cuda(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     if not all(t.is_contiguous() for t in args):
         raise ValueError("y, cb, cr, strength and apply must be contiguous")
     out = torch.empty((S, h, w, 4), dtype=torch.uint8, device=dev)
-    rc = kernels.lib().h263_present_rgba(
-        y.data_ptr(), cb.data_ptr(), cr.data_ptr(), out.data_ptr(), S, h, w,
-        strength.data_ptr(), apply.data_ptr(), kernels.stream_handle(dev))
-    kernels.check(rc, "h263_present_rgba")
+    kernels.launch("h263_present_rgba", dev, y.data_ptr(), cb.data_ptr(),
+                   cr.data_ptr(), out.data_ptr(), S, h, w,
+                   strength.data_ptr(), apply.data_ptr())
     launches += 1
     return out

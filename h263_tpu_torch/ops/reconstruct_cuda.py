@@ -97,11 +97,10 @@ def reconstruct_from_dense_cuda(dense, mvs, inter, ref_y, ref_cb, ref_cr,
         out = tuple(torch.empty(shape, dtype=torch.uint8, device=dev)
                     for shape in shapes)
     basis = kernels.device_table("idct_basis", _BASIS, dev)
-    rc = kernels.lib().h263_reconstruct(
-        dense.data_ptr(), mvs.data_ptr(), inter.data_ptr(), ref_y.data_ptr(),
-        ref_cb.data_ptr(), ref_cr.data_ptr(), *(o.data_ptr() for o in out),
-        s, mbh, mbw, h, w, rh, rw, basis.data_ptr(),
-        kernels.stream_handle(dev))
-    kernels.check(rc, "h263_reconstruct")
+    kernels.launch(
+        "h263_reconstruct", dev, dense.data_ptr(), mvs.data_ptr(),
+        inter.data_ptr(), ref_y.data_ptr(), ref_cb.data_ptr(),
+        ref_cr.data_ptr(), *(o.data_ptr() for o in out), s, mbh, mbw, h, w,
+        rh, rw, basis.data_ptr())
     launches += 1
     return out

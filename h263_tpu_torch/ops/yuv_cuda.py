@@ -42,9 +42,7 @@ def yuv420_to_rgba_cuda(y: torch.Tensor, cb: torch.Tensor,
     if not (y.is_contiguous() and cb.is_contiguous() and cr.is_contiguous()):
         raise ValueError("y, cb and cr must be contiguous")
     out = torch.empty((S, h, w, 4), dtype=torch.uint8, device=dev)
-    rc = kernels.lib().h263_yuv_rgba(
-        y.data_ptr(), cb.data_ptr(), cr.data_ptr(), out.data_ptr(), S, h, w,
-        kernels.stream_handle(dev))
-    kernels.check(rc, "h263_yuv_rgba")
+    kernels.launch("h263_yuv_rgba", dev, y.data_ptr(), cb.data_ptr(),
+                   cr.data_ptr(), out.data_ptr(), S, h, w)
     launches += 1
     return out

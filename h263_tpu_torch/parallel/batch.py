@@ -57,6 +57,20 @@ timers (`host_parse`, `bucket_slice`, `transfer`, `reconstruct_dispatch`,
 port adds `std_python_header_replays`, the standard steps replayed
 through the Python header parser.
 
+With `mesh=` (`parallel/sharding.py`) the S streams split into contiguous
+equal shards, one per mesh device, which share nothing.  The parse stays
+ONE native call over all S streams, and the header state, the ladder's cut
+and the MV-row flip decision stay global, as in the JAX package's one
+sharded program; each shard's slice of the pinned rows (`rows[lo:hi]`,
+one contiguous copy) goes to its device, and the sharded reconstruction
+programs (`shard_reconstruct_fn`) dispatch each shard on its device's
+current stream.  A staging buffer is free once every shard's copy event
+has completed; `last_transfer_s` is the slowest shard's copy and
+`last_transfer_bytes` the bytes of all shards.  `mesh=` takes the place
+of the JAX package's reconstruct-function injections.  Without `mesh=`
+the decoder runs the same per-shard code over a mesh of its one device
+and hands out that shard's tensors.
+
 Left out against the JAX package: the u32 and split transports and their
 parsers, the standard path's slim MVs (its rows ship full MVs from the
 first step), the non-fused Sorenson batch parser, the `pallas=`,
@@ -68,20 +82,16 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..bitio import BitReader
-from ..decoder.reconstruct import (
-    PresentParams,
-    present_rgba_batched,
-    reconstruct_frame_packed_d24,
-    reconstruct_frame_packed_d24_fused,
-    reconstruct_from_dense,
-)
+from ..decoder.reconstruct import PresentParams
 from ..native.bindings import (
     NeedsPythonHeader,
     PackOverflow,
@@ -116,6 +126,13 @@ from ..types import (
     carry_forward_options,
 )
 from ..utils.trace import incr, trace_stage
+from .sharding import (
+    StreamShards,
+    make_stream_mesh,
+    place,
+    shard_present_fn,
+    shard_reconstruct_fn,
+)
 
 _PTYPES = (PictureTypeCode.I_FRAME, PictureTypeCode.P_FRAME,
            PictureTypeCode.DISPOSABLE_P_FRAME, PictureTypeCode.RESERVED)
@@ -182,7 +199,7 @@ class _HostBatch:
         self.mvs_t, self.mvs = _pinned((n, mb_h, mb_w, 4, 2), torch.int16, pin)
         self.inter_t, self.inter = _pinned((n, mb_h, mb_w), torch.uint8, pin,
                                            fill=1)
-        self.copied = None  # event after the copies that read these buffers
+        self.copied = ()  # events after the copies that read these buffers
 
     def slice_of(self, i):
         return (self.coeffs_y[i], self.class_y[i], self.coeffs_cb[i],
@@ -212,25 +229,34 @@ class _PackedBatch:
         self.rows_t = None        # a standard step's pinned delta24 rows
         self.rows = None          # their numpy view
         self.std_parser = None    # the StandardBatchParser bound to them
-        self.copied = None        # event after the copies of the last step
+        self.copied = ()          # events after the copies of the last step
         self.fut = None           # pipeline future of the consuming step
 
 
 class BatchedStreamDecoder:
     """Decode n same-resolution streams, Sorenson or (with
     `DecoderOption.NONE`) standard H.263, in lockstep, one frame per
-    stream per `decode_step`, on `device` ("cuda", the default, or "cpu";
-    no fallback between them)."""
+    stream per `decode_step`, on `device` ("cuda", the default, "cuda:<k>"
+    or "cpu"; no fallback between them), or sharded over `mesh`
+    (`parallel.sharding.make_stream_mesh`), whose size must divide n.
+    With a mesh, the planes and RGBA come back as `StreamShards` and
+    `device` is None."""
 
     def __init__(self, n_streams: int, width: int, height: int,
                  decoder_options: DecoderOption = DecoderOption.SORENSON_SPARK_BITSTREAM,
-                 pack_cap: Optional[int] = None, *, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' requested but CUDA is not "
-                               "available")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {device!r}")
+                 pack_cap: Optional[int] = None, *, device=None, mesh=None):
+        if mesh is not None and device is not None:
+            raise ValueError("give device= or mesh=, not both")
+        self.mesh = mesh
+        self.device = (None if mesh is not None
+                       else kernels.resolve_device(device or "cuda"))
+        # The unsharded decoder is the mesh of its one device.
+        self._mesh = mesh or make_stream_mesh([self.device])
+        # Each shard: (device, first stream, end stream).
+        self._shards = [(dev, lo, hi) for dev, (lo, hi) in zip(
+            self._mesh.devices, self._mesh.shard_ranges(n_streams))]
+        self._programs: dict = {}   # (packed, mv_full) -> sharded program
+        self._present_fn = shard_present_fn(self._mesh)
         self.n = n_streams
         self.w, self.h = width, height
         self.cw, self.ch = (width + 1) // 2, (height + 1) // 2
@@ -250,13 +276,14 @@ class BatchedStreamDecoder:
         self.mb_w, self.mb_h = mb_w, mb_h
 
         def planes(h, w):
-            return torch.zeros((n_streams, h, w), dtype=torch.uint8,
-                               device=self.device)
+            return self._join(StreamShards([
+                torch.zeros((hi - lo, h, w), dtype=torch.uint8, device=dev)
+                for dev, lo, hi in self._shards]))
 
         self.ref_y = planes(self.h, self.w)
         self.ref_cb = planes(self.ch, self.cw)
         self.ref_cr = planes(self.ch, self.cw)
-        self._pin = self.device.type == "cuda"
+        self._pin = self._mesh.devices[0].type == "cuda"
         # Dense buffers are made at the first dense step (a PackOverflow).
         self._batches = [None, None]
         self._batch_idx = 0
@@ -280,17 +307,60 @@ class BatchedStreamDecoder:
         # PictureOption per running-options value.
         self._pic_cache: dict = {}
         self._po_cache: dict = {}
-        self._params = PresentParams(n_streams, self.device)
+        self._params = [PresentParams(hi - lo, dev)
+                        for dev, lo, hi in self._shards]
+
+    # -- shards ----------------------------------------------------------------
+
+    def _join(self, x: StreamShards):
+        """A sharded result as the decoder hands it out: StreamShards with
+        a mesh, the one shard's tensor without."""
+        return x if self.mesh is not None else x[0]
+
+    def _split(self, x) -> StreamShards:
+        """The inverse of `_join`."""
+        return x if self.mesh is not None else StreamShards((x,))
+
+    @staticmethod
+    def _cols(x: StreamShards, a: int, b: int) -> StreamShards:
+        """Columns [a, b) of every shard's rows."""
+        return StreamShards([t[:, a:b] for t in x])
+
+    def _reconstruct(self, packed, *inputs, mv_full: bool = False):
+        """The sharded reconstruction program of a transport (False: dense,
+        "d24", "d24f") on `inputs` (StreamShards) against the reference
+        planes: the new (y, cb, cr)."""
+        fn = self._programs.get((packed, mv_full))
+        if fn is None:
+            fn = self._programs[(packed, mv_full)] = shard_reconstruct_fn(
+                self._mesh, self.h, self.w, packed, mv_full)
+        refs = (self._split(r) for r in (self.ref_y, self.ref_cb,
+                                         self.ref_cr))
+        return tuple(self._join(p) for p in fn(*inputs, *refs))
+
+    def load_state(self, y, cb, cr) -> None:
+        """Replace the reference planes (uint8 numpy [S, H, W] and two
+        [S, ch, cw]), scattered over the mesh."""
+        shapes = ((self.n, self.h, self.w), (self.n, self.ch, self.cw),
+                  (self.n, self.ch, self.cw))
+        for a, s in zip((y, cb, cr), shapes):
+            if np.shape(a) != s:
+                raise ValueError(f"plane shape {np.shape(a)} != {s}")
+        self.ref_y, self.ref_cb, self.ref_cr = (
+            self._join(place(np.asarray(a, dtype=np.uint8), mesh=self._mesh))
+            for a in (y, cb, cr))
 
     # -- staging buffers ------------------------------------------------------
 
     @staticmethod
     def _reclaim(buf):
-        """Wait until the copies that last read `buf` have finished."""
-        if buf.copied is not None:
+        """Wait until the copies that last read `buf` have finished (every
+        shard's)."""
+        if buf.copied:
             with trace_stage("reclaim_wait"):
-                buf.copied.synchronize()
-            buf.copied = None
+                for ev in buf.copied:
+                    ev.synchronize()
+            buf.copied = ()
 
     def next_host_batch(self) -> _HostBatch:
         self._batch_idx ^= 1
@@ -319,37 +389,44 @@ class BatchedStreamDecoder:
         return packed
 
     def _transfer(self, host, buf):
-        """Copy the host tensors to the device (`non_blocking` from pinned
-        memory); the event after the copies guards `buf`'s reuse.  On the
-        card, CUDA events around the copies time them, and
-        `last_transfer_s` / `last_transfer_bytes` hold the last copies
-        whose events have completed (`_read_copy_times`); on the CPU, the
-        host time of the copies."""
+        """Copy each shard's rows of the host tensors to its device
+        (`non_blocking` from pinned memory); the events after each shard's
+        copies guard `buf`'s reuse.  On the card, CUDA events on each
+        shard's stream time its copies, and `last_transfer_s` /
+        `last_transfer_bytes` hold the last step whose copies have all
+        completed (`_read_copy_times`); on the CPU, the host time of the
+        copies.  Returns each tensor as StreamShards."""
         nbytes = sum(t.numel() * t.element_size() for t in host)
         if not self._pin:
             t0 = time.perf_counter()
-            dev = [t.to(self.device) for t in host]
+            dev = [StreamShards([t[lo:hi].to(d) for d, lo, hi in self._shards])
+                   for t in host]
             self.last_transfer_s = time.perf_counter() - t0
             self.last_transfer_bytes = nbytes
             return dev
         self._read_copy_times()
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        dev = [t.to(self.device, non_blocking=True) for t in host]
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
+        parts, copies = [[] for _ in host], []
+        for d, lo, hi in self._shards:
+            start = kernels.record_event(d, enable_timing=True)
+            for j, t in enumerate(host):
+                parts[j].append(t[lo:hi].to(d, non_blocking=True))
+            copies.append((start, kernels.record_event(d, enable_timing=True)))
         if buf is not None:
-            buf.copied = end
-        self._copy_times.append((start, end, nbytes))
-        return dev
+            buf.copied = tuple(end for _, end in copies)
+        self._copy_times.append((copies, nbytes))
+        return [StreamShards(p) for p in parts]
 
     def _read_copy_times(self) -> None:
         """Take the times of the earlier steps' copies whose events have
         completed (`query`, no wait): the host-to-device rate that the
-        pool's front-end trigger reads, one step behind."""
-        while self._copy_times and self._copy_times[0][1].query():
-            start, end, nbytes = self._copy_times.popleft()
-            self.last_transfer_s = start.elapsed_time(end) / 1e3
+        pool's front-end trigger reads, one step behind.  With a mesh, the
+        slowest shard's copy over all shards' bytes (events on different
+        cards cannot be timed against each other)."""
+        while self._copy_times and all(
+                end.query() for _, end in self._copy_times[0][0]):
+            copies, nbytes = self._copy_times.popleft()
+            self.last_transfer_s = max(start.elapsed_time(end)
+                                       for start, end in copies) / 1e3
             self.last_transfer_bytes = nbytes
 
     # -- host stage -----------------------------------------------------------
@@ -629,8 +706,7 @@ class BatchedStreamDecoder:
         dev = self._transfer([torch.from_numpy(a) for a in (
             dense, np.stack([f.mvs for f in frames]),
             np.stack([f.inter for f in frames]).astype(np.uint8))], None)
-        out = reconstruct_from_dense(*dev, self.ref_y, self.ref_cb,
-                                     self.ref_cr)
+        out = self._reconstruct(False, *dev)
         self.ref_y, self.ref_cb, self.ref_cr = out
         return out
 
@@ -639,8 +715,7 @@ class BatchedStreamDecoder:
         batch=...): one copy of the dense coefficients, MVs and flags."""
         dense, mvs, inter = self._transfer(
             (batch.dense_t, batch.mvs_t, batch.inter_t), batch)
-        out = reconstruct_from_dense(dense, mvs, inter, self.ref_y,
-                                     self.ref_cb, self.ref_cr)
+        out = self._reconstruct(False, dense, mvs, inter)
         return self._advance(out, "steps_dense")
 
     def step_packed(self, packed: _PackedBatch):
@@ -667,15 +742,13 @@ class BatchedStreamDecoder:
                 self._mv_full = True  # the next parses write 8 B/MB rows
         with trace_stage("transfer"):
             dev = self._transfer(host, packed)
-        refs = (self.ref_y, self.ref_cb, self.ref_cr)
         with trace_stage("reconstruct_dispatch"):
             if flip:
-                out = reconstruct_frame_packed_d24(dev[0][:, head:end],
-                                                   *dev[1:], *refs)
+                out = self._reconstruct(
+                    "d24", self._cols(dev[0], head, end), *dev[1:])
             else:
-                out = reconstruct_frame_packed_d24_fused(
-                    dev[0][:, :end], *refs, mv_full=mv_full, mbh=self.mb_h,
-                    mbw=self.mb_w)
+                out = self._reconstruct("d24f", self._cols(dev[0], 0, end),
+                                        mv_full=mv_full)
         return self._advance(out, "steps",
                              "steps_fused_flip" if flip else "steps_fused")
 
@@ -686,9 +759,8 @@ class BatchedStreamDecoder:
             dev = self._transfer((packed.rows_t, packed.mvs_t,
                                   packed.inter_t), packed)
         with trace_stage("reconstruct_dispatch"):
-            out = reconstruct_frame_packed_d24(
-                dev[0][:, :3 * cut], dev[1], dev[2], self.ref_y,
-                self.ref_cb, self.ref_cr)
+            out = self._reconstruct(
+                "d24", self._cols(dev[0], 0, 3 * cut), dev[1], dev[2])
         return self._advance(out, "steps")
 
     def submit_step(self, buffers: Sequence[bytes]):
@@ -706,11 +778,14 @@ class BatchedStreamDecoder:
         packed = self.next_packed_batch()
         with trace_stage("host_parse"):
             self.parse_batch_packed(buffers, packed)
-        if self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
+        if self._pin:
+            streams = [torch.cuda.current_stream(d)
+                       for d, _, _ in self._shards]
 
             def run():
-                with torch.cuda.stream(stream):
+                with contextlib.ExitStack() as stack:
+                    for stream in streams:
+                        stack.enter_context(torch.cuda.stream(stream))
                     return self.step_packed(packed)
         else:
             def run():
@@ -744,9 +819,12 @@ class BatchedStreamDecoder:
             strength[i] = QUANT_TO_STRENGTH[hdr.quantizer & 31]
             flags[i] = (bool(hdr.options & PictureOption.USE_DEBLOCKER)
                         if deblock is None else deblock)
-        strength_d, flags_d = self._params.to_device(strength, flags)
-        return present_rgba_batched(self.ref_y, self.ref_cb, self.ref_cr,
-                                    strength_d, flags_d)
+        params = [p.to_device(strength[lo:hi], flags[lo:hi])
+                  for p, (_, lo, hi) in zip(self._params, self._shards)]
+        planes = (self._split(r) for r in (self.ref_y, self.ref_cb,
+                                           self.ref_cr))
+        return self._join(self._present_fn(
+            *planes, *(StreamShards(p) for p in zip(*params))))
 
     def decode_step(self, buffers: Sequence[bytes], transport: str = "auto",
                     mask=None):

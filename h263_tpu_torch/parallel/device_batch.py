@@ -36,6 +36,19 @@ That copy was enqueued two calls earlier, so the wait only holds the host
 back when it runs two calls ahead of the card (counted as
 `staging_reclaim_waits`).
 
+With `mesh=` (`parallel/sharding.py`) the S streams split into contiguous
+equal shards, one per mesh device, which share nothing: each shard has its
+own header prep over its lanes, its own pinned staging pair and events, its
+own presentation params, and its reference planes and statuses on its
+device (`StreamShards`).  A step stages and copies every shard in turn,
+then runs the sharded step program (`shard_device_frontend_fn`), which
+dispatches each shard on its device's current stream; the per-stream
+header state (`_pictures`, `_running`, `_last_quant`, `_last_deblock`)
+stays global, and a header reject names its global stream.  This takes
+the place of the JAX package's `step_fn=` injection.  Without `mesh=` the
+decoder runs the same per-shard code over a mesh of its one device and
+hands out that shard's tensors.
+
 Stage timers (`utils/trace.py`, off unless enabled) take the JAX package's
 names at its places: `host_parse`, `transfer`, `reconstruct_dispatch`,
 `reclaim_wait`.
@@ -48,15 +61,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..decoder.reconstruct import (
-    PresentParams,
-    present_rgba_batched,
-    reconstruct_from_dense,
-)
+from .. import kernels
 from ..bitio import BitReader
+from ..decoder.reconstruct import PresentParams
 from ..native import DevicePrepBatch
 from ..ops.deblock import QUANT_TO_STRENGTH
-from ..parser.automaton_cuda import parse_assemble_cuda
 from ..parser.device_frontend import encode_ptype
 from ..parser.picture import decode_picture
 from ..testing.encoder import (
@@ -72,67 +81,154 @@ from ..types import (
     carry_forward_options,
 )
 from ..utils.trace import incr, trace_stage
+from .sharding import (
+    StreamShards,
+    make_stream_mesh,
+    place,
+    shard_device_frontend_fn,
+    shard_present_fn,
+)
+
+
+class _Shard:
+    """One device's share of a decoder's streams, lanes [lo, hi): the
+    Sorenson header prep over them, the ping-pong staging pair (flat
+    payload bytes with one spare zero word, so the payload is never empty;
+    meta [T, 6, n], T = 1 until a window), the event of each buffer's last
+    copy, and the presentation params."""
+
+    def __init__(self, dec, device, lo, hi):
+        n = hi - lo
+        self.device, self.lo, self.hi = device, lo, hi
+        self.prep = (DevicePrepBatch(n, dec.w, dec.h) if dec._sorenson
+                     else None)
+        self.pin = device.type == "cuda"
+        self.stage = [torch.zeros(n * dec.max_frame_bytes + 4,
+                                  dtype=torch.uint8, pin_memory=self.pin)
+                      for _ in range(2)]
+        self.meta = [torch.zeros((1, 6, n), dtype=torch.int32,
+                                 pin_memory=self.pin) for _ in range(2)]
+        self.copied = [None, None]
+        self.pp = 0
+        self.params = PresentParams(n, device)
+
+    def next_stage(self, nbytes: int, frames: int, cap: int):
+        """The next buffer of the ping-pong pair as its first `nbytes`
+        bytes ([nbytes // 4, 4]) and its meta for `frames` frames ([frames,
+        6, n]), once the copy that last read them has finished."""
+        self.pp ^= 1
+        i, n = self.pp, self.hi - self.lo
+        ev = self.copied[i]
+        if ev is not None:
+            if not ev.query():      # the host runs two calls ahead
+                incr("staging_reclaim_waits")
+            with trace_stage("reclaim_wait"):
+                ev.synchronize()
+            self.copied[i] = None
+        if self.stage[i].numel() < nbytes:
+            size = max(nbytes, frames * n * cap + 4)
+            self.stage[i] = torch.zeros(size, dtype=torch.uint8,
+                                        pin_memory=self.pin)
+        if self.meta[i].shape[0] < frames:
+            self.meta[i] = torch.zeros((frames, 6, n), dtype=torch.int32,
+                                       pin_memory=self.pin)
+        return self.stage[i][:nbytes].view(-1, 4), self.meta[i][:frames]
+
+    def copy_to_device(self, stage, meta):
+        """One `non_blocking` copy each of the staged payload and meta; the
+        event after them, on this device's stream, guards the pinned
+        buffer's reuse."""
+        with trace_stage("transfer"):
+            dev_stage = stage.to(self.device, non_blocking=True, copy=True)
+            dev_meta = meta.to(self.device, non_blocking=True, copy=True)
+            if self.pin:
+                self.copied[self.pp] = kernels.record_event(self.device)
+        return dev_stage, dev_meta
 
 
 class DeviceFrontendDecoder:
     """Decode S same-resolution streams, Sorenson or (with
     `DecoderOption.NONE`) standard H.263, one frame per stream per
-    `decode_step`, on `device` ("cuda", the default, or "cpu"; no fallback
-    between them).
+    `decode_step`, on `device` ("cuda", the default, "cuda:<k>" or "cpu";
+    no fallback between them), or sharded over `mesh`
+    (`parallel.sharding.make_stream_mesh`), whose size must divide S.
+    With a mesh, the planes, statuses and RGBA come back as `StreamShards`
+    and `device` is None.
     """
 
     def __init__(self, n_streams: int, width: int, height: int,
                  decoder_options: DecoderOption = DecoderOption.SORENSON_SPARK_BITSTREAM,
-                 *, device="cuda", max_frame_bytes: Optional[int] = None):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' requested but CUDA is not "
-                               "available")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {device!r}")
+                 *, device=None, max_frame_bytes: Optional[int] = None,
+                 mesh=None):
+        if mesh is not None and device is not None:
+            raise ValueError("give device= or mesh=, not both")
+        self.mesh = mesh
+        self.device = (None if mesh is not None
+                       else kernels.resolve_device(device or "cuda"))
+        # The unsharded decoder is the mesh of its one device.
+        self._mesh = mesh or make_stream_mesh([self.device])
+        self._step_fn = shard_device_frontend_fn(self._mesh, height, width)
+        self._present_fn = shard_present_fn(self._mesh)
         self.decoder_options = decoder_options
+        self._sorenson = bool(decoder_options
+                              & DecoderOption.SORENSON_SPARK_BITSTREAM)
         self.n = n_streams
         self.w, self.h = width, height
         self.cw, self.ch = (width + 1) // 2, (height + 1) // 2
         self.mb_w, self.mb_h = -(-width // 16), -(-height // 16)
-        cap = (((max_frame_bytes or 8192) + 3) // 4) * 4
-        self.max_frame_bytes = cap
-        # The native prep parses Sorenson headers; standard ones take the
-        # Python loop of `_prepare_standard`.
-        self._prep = (DevicePrepBatch(n_streams, width, height)
-                      if decoder_options
-                      & DecoderOption.SORENSON_SPARK_BITSTREAM else None)
+        self.max_frame_bytes = (((max_frame_bytes or 8192) + 3) // 4) * 4
+        # The native prep parses Sorenson headers (each shard's over its
+        # lanes); standard ones take the Python loop of `_prepare_standard`.
+        self._shards = [_Shard(self, dev, lo, hi) for dev, (lo, hi) in zip(
+            self._mesh.devices, self._mesh.shard_ranges(n_streams))]
         # Per-stream header state of a standard stream: its last picture
         # header and the running options it carries (state.rs:147-155).
         self._pictures = [None] * n_streams
         self._running = [PictureOption.NONE] * n_streams
 
         def planes(h, w):
-            return torch.zeros((n_streams, h, w), dtype=torch.uint8,
-                               device=self.device)
+            return self._join(StreamShards([
+                torch.zeros((sh.hi - sh.lo, h, w), dtype=torch.uint8,
+                            device=sh.device) for sh in self._shards]))
 
         self.ref_y = planes(self.h, self.w)
         self.ref_cb = planes(self.ch, self.cw)
         self.ref_cr = planes(self.ch, self.cw)
-        self.last_status: Optional[torch.Tensor] = None
+        self.last_status = None
         # [T, S] statuses of the last window (None after a single step).
-        self.last_status_steps: Optional[torch.Tensor] = None
+        self.last_status_steps = None
         self._skip: Optional[bytes] = None
         # Last-good presentation params per stream (quantizer -> deblock
         # strength, advisory deblocker flag).
         self._last_quant = np.full(n_streams, 8, dtype=np.int32)
         self._last_deblock = np.zeros(n_streams, dtype=np.bool_)
-        # Ping-pong staging pair: flat payload bytes (one spare zero word,
-        # so the payload is never empty), meta [T, 6, S] (T = 1 until a
-        # window), the event of the last copy.
-        self._pin = self.device.type == "cuda"
-        self._stage = [torch.zeros(n_streams * cap + 4, dtype=torch.uint8,
-                                   pin_memory=self._pin) for _ in range(2)]
-        self._meta = [torch.zeros((1, 6, n_streams), dtype=torch.int32,
-                                  pin_memory=self._pin) for _ in range(2)]
-        self._copied = [None, None]
-        self._pp = 0
-        self._params = PresentParams(n_streams, self.device)
+
+    # -- shards ----------------------------------------------------------------
+
+    def _join(self, x: StreamShards):
+        """A sharded result as the decoder hands it out: StreamShards with
+        a mesh, the one shard's tensor without."""
+        return x if self.mesh is not None else x[0]
+
+    def _split(self, x, axis: int = 0) -> StreamShards:
+        """The inverse of `_join`."""
+        return x if self.mesh is not None else StreamShards((x,), axis)
+
+    def _shard_of(self, slot: int):
+        """(shard index, lane within it) of stream `slot`."""
+        for k, sh in enumerate(self._shards):
+            if sh.lo <= slot < sh.hi:
+                return k, slot - sh.lo
+        raise IndexError(f"stream {slot} out of range [0, {self.n})")
+
+    def _dispatch(self, staged):
+        """The device half of a step or window over every shard:
+        (y, cb, cr, status) as StreamShards."""
+        payloads, metas = zip(*staged)
+        refs = (self._split(r) for r in (self.ref_y, self.ref_cb,
+                                         self.ref_cr))
+        with trace_stage("reconstruct_dispatch"):
+            return self._step_fn(payloads, metas, *refs)
 
     # -- host-side helpers ---------------------------------------------------
 
@@ -141,7 +237,7 @@ class DeviceFrontendDecoder:
         in the decoder's own flavour, so its header parses under the same
         options."""
         if self._skip is None:
-            enc = (encode_sorenson_picture if self._prep is not None
+            enc = (encode_sorenson_picture if self._sorenson
                    else encode_standard_picture)
             self._skip = enc(
                 self.w, self.h, PictureTypeCode.P_FRAME,
@@ -149,63 +245,32 @@ class DeviceFrontendDecoder:
                 temporal_reference=0)
         return self._skip
 
-    def _next_stage(self, nbytes: int, frames: int = 1):
-        """The next buffer of the ping-pong pair as its first `nbytes`
-        bytes ([nbytes // 4, 4]) and its meta for `frames` frames ([frames,
-        6, S]), once the copy that last read them has finished."""
-        self._pp ^= 1
-        i = self._pp
-        ev = self._copied[i]
-        if ev is not None:
-            if not ev.query():      # the host runs two calls ahead
-                incr("staging_reclaim_waits")
-            with trace_stage("reclaim_wait"):
-                ev.synchronize()
-            self._copied[i] = None
-        if self._stage[i].numel() < nbytes:
-            size = max(nbytes, frames * self.n * self.max_frame_bytes + 4)
-            self._stage[i] = torch.zeros(size, dtype=torch.uint8,
-                                         pin_memory=self._pin)
-        if self._meta[i].shape[0] < frames:
-            self._meta[i] = torch.zeros((frames, 6, self.n),
-                                        dtype=torch.int32,
-                                        pin_memory=self._pin)
-        return self._stage[i][:nbytes].view(-1, 4), self._meta[i][:frames]
-
-    def _copy_to_device(self, stage, meta):
-        """One `non_blocking` copy each of the staged payload and meta; the
-        event after them guards the pinned buffer's reuse."""
-        with trace_stage("transfer"):
-            dev_stage = stage.to(self.device, non_blocking=True, copy=True)
-            dev_meta = meta.to(self.device, non_blocking=True, copy=True)
-            if self.device.type == "cuda":
-                ev = torch.cuda.Event()
-                ev.record()
-                self._copied[self._pp] = ev
-        return dev_stage, dev_meta
-
-    def _commit(self, buffers, okm) -> None:
-        """Commit the presentation params of the lanes whose header parsed,
-        except absent (None) lanes: header-commit suppression."""
-        hdr = self._prep.hdr
+    def _commit(self, sh, buffers, okm) -> None:
+        """Commit the presentation params of shard `sh`'s lanes whose
+        header parsed, except absent (None) lanes: header-commit
+        suppression."""
+        hdr = sh.prep.hdr
         commit = okm & np.array([b is not None for b in buffers], dtype=bool)
-        np.copyto(self._last_quant, hdr[:, 6], where=commit)
-        np.copyto(self._last_deblock, hdr[:, 5] != 0, where=commit)
+        np.copyto(self._last_quant[sh.lo:sh.hi], hdr[:, 6], where=commit)
+        np.copyto(self._last_deblock[sh.lo:sh.hi], hdr[:, 5] != 0,
+                  where=commit)
 
-    def _prepare_standard(self, buffers):
-        """The standard header prep, the JAX package's Python loop: per
-        stream, the picture header against the stream's last one, the dims
-        check (an inherited format passes), the carried running options,
-        and on success the header state and presentation params committed
-        (present lanes only).  A stream that fails (over the cap, a header
-        error) stages the skip frame with no options, and the first error
-        is returned.  Returns (the payload: each stream's bytes padded to
-        whole words, back to back; meta int32 [6, S]; first error)."""
+    def _prepare_standard(self, buffers, lo: int, hi: int):
+        """The standard header prep of streams [lo, hi), the JAX package's
+        Python loop: per stream, the picture header against the stream's
+        last one, the dims check (an inherited format passes), the carried
+        running options, and on success the header state and presentation
+        params committed (present lanes only).  A stream that fails (over
+        the cap, a header error) stages the skip frame with no options, and
+        the first error is returned.  Returns (the payload: each stream's
+        bytes padded to whole words, back to back; meta int32 [6, hi - lo];
+        first error)."""
         cap, skip = self.max_frame_bytes, self._skip_frame_bytes()
-        meta = np.zeros((6, self.n), dtype=np.int32)
+        meta = np.zeros((6, hi - lo), dtype=np.int32)
         parts, woff = [], 0
         first_err: Optional[Exception] = None
-        for i, buf in enumerate(buffers):
+        for i in range(lo, hi):
+            buf = buffers[i]
             absent = buf is None
             if absent:
                 buf = skip
@@ -241,65 +306,74 @@ class DeviceFrontendDecoder:
             data = r.data
             words = (len(data) + 3) // 4
             parts.append(bytes(data) + b"\0" * (4 * words - len(data)))
-            meta[:, i] = (r.pos, 8 * len(data), pic.quantizer,
-                          encode_ptype(pic, running), 0, woff)
+            meta[:, i - lo] = (r.pos, 8 * len(data), pic.quantizer,
+                               encode_ptype(pic, running), 0, woff)
             woff += words
         return b"".join(parts), meta, first_err
 
     def _staged(self, buffers):
         """The buffers as the prep takes them: the skip frame for None, an
         empty payload (a header reject) for a frame over the cap."""
-        if len(buffers) != self.n:
-            raise ValueError(f"expected {self.n} buffers, got {len(buffers)}")
         cap = self.max_frame_bytes
         return [self._skip_frame_bytes() if b is None
                 else (b"" if len(b) > cap else b) for b in buffers]
 
-    # -- the step ------------------------------------------------------------
-
-    def decode_step(self, buffers: Sequence[Optional[bytes]], mask=None):
-        """Decode one frame per stream; returns (y, cb, cr) uint8 planes on
-        the device.  `None` (or a False `mask` slot) decodes the skip frame
-        with the header commit suppressed.  A frame over the transfer cap or
-        with a rejected header decodes as the identity frame, and the first
-        such error is raised after the step has been dispatched."""
+    def _check_len(self, buffers) -> None:
         if len(buffers) != self.n:
             raise ValueError(f"expected {self.n} buffers, got {len(buffers)}")
-        if mask is not None:
-            buffers = [b if mask[i] else None for i, b in enumerate(buffers)]
+
+    # -- the step ------------------------------------------------------------
+
+    def _stage_step(self, sh, buffers):
+        """Shard `sh`'s host prep of one step into its next staging buffer,
+        copied to its device: ((payload, meta) on the device, first
+        error)."""
+        cap = self.max_frame_bytes
         first_err: Optional[Exception] = None
-        if self._prep is None:
+        if not self._sorenson:
             with trace_stage("host_parse"):
-                payload, meta_np, first_err = self._prepare_standard(buffers)
-            stage, meta = self._next_stage(len(payload) + 4)
+                payload, meta_np, first_err = self._prepare_standard(
+                    buffers, sh.lo, sh.hi)
+            stage, meta = sh.next_stage(len(payload) + 4, 1, cap)
             flat = stage.numpy().reshape(-1)
             flat[:len(payload)] = np.frombuffer(payload, dtype=np.uint8)
             flat[len(payload):] = 0
             meta = meta[0]
             meta.numpy()[:] = meta_np
         else:
-            bufs = self._staged(buffers)
-            stage, meta = self._next_stage(
-                sum(((len(b) + 3) // 4) * 4 for b in bufs) + 4)
+            mine = buffers[sh.lo:sh.hi]
+            bufs = self._staged(mine)
+            stage, meta = sh.next_stage(
+                sum(((len(b) + 3) // 4) * 4 for b in bufs) + 4, 1, cap)
             meta = meta[0]
             with trace_stage("host_parse"):
-                failed = self._prep.prepare_ragged(bufs, stage.numpy(),
-                                                   meta.numpy())
-                okm = self._prep.rc == 0
-                self._commit(buffers, okm)
+                failed = sh.prep.prepare_ragged(bufs, stage.numpy(),
+                                                meta.numpy())
+                okm = sh.prep.rc == 0
+                self._commit(sh, mine, okm)
                 if failed:
                     i = int(np.argmin(okm))
                     first_err = H263Error(
-                        f"stream {i}: header rejected by device front-end "
-                        f"prep (rc {int(self._prep.rc[i])})")
+                        f"stream {sh.lo + i}: header rejected by device "
+                        f"front-end prep (rc {int(sh.prep.rc[i])})")
+        return sh.copy_to_device(stage, meta), first_err
 
-        dev_stage, dev_meta = self._copy_to_device(stage, meta)
-        with trace_stage("reconstruct_dispatch"):
-            dense, mvs, inter, status = parse_assemble_cuda(
-                dev_stage, dev_meta, mbh=self.mb_h, mbw=self.mb_w,
-                width=self.w, height=self.h)
-            y, cb, cr = reconstruct_from_dense(dense, mvs, inter, self.ref_y,
-                                               self.ref_cb, self.ref_cr)
+    def decode_step(self, buffers: Sequence[Optional[bytes]], mask=None):
+        """Decode one frame per stream; returns (y, cb, cr) uint8 planes on
+        the device (StreamShards with a mesh).  `None` (or a False `mask`
+        slot) decodes the skip frame with the header commit suppressed.  A
+        frame over the transfer cap or with a rejected header decodes as
+        the identity frame, and the first such error is raised after the
+        step has been dispatched on every shard."""
+        self._check_len(buffers)
+        if mask is not None:
+            buffers = [b if mask[i] else None for i, b in enumerate(buffers)]
+        staged, first_err = [], None
+        for sh in self._shards:
+            dev_in, err = self._stage_step(sh, buffers)
+            staged.append(dev_in)
+            first_err = first_err or err
+        y, cb, cr, status = (self._join(x) for x in self._dispatch(staged))
         self.ref_y, self.ref_cb, self.ref_cr = y, cb, cr
         self.last_status = status
         self.last_status_steps = None
@@ -309,26 +383,64 @@ class DeviceFrontendDecoder:
 
     # -- the K-frame window ----------------------------------------------------
 
+    def _stage_window(self, sh, frame_lists):
+        """Shard `sh`'s host prep of a window, its T frames back to back in
+        one staging buffer (frame t's word offsets rebased by the words
+        before it), copied to its device: ((payload, meta) on the device,
+        (frame, global stream, error) of its first header reject or
+        None)."""
+        r_lists = [self._staged(bufs[sh.lo:sh.hi]) for bufs in frame_lists]
+        wbytes_t = [sum(((len(b) + 3) // 4) * 4 for b in bufs)
+                    for bufs in r_lists]
+        total = sum(wbytes_t) + 4
+        stage, meta = sh.next_stage(total, len(frame_lists),
+                                    self.max_frame_bytes)
+        flat = stage.numpy().reshape(-1)
+        meta_np = meta.numpy()
+        first = None
+        woff = 0  # running word offset into the shared flat buffer
+        with trace_stage("host_parse"):
+            for t, bufs in enumerate(r_lists):
+                # Exact-size view: the prep zero-fills its view's tail.
+                view = flat[woff * 4: woff * 4 + wbytes_t[t]]
+                failed = sh.prep.prepare_ragged(bufs, view, meta_np[t])
+                okm = sh.prep.rc == 0
+                self._commit(sh, frame_lists[t][sh.lo:sh.hi], okm)
+                if failed and first is None:
+                    i = int(np.argmin(okm))
+                    first = (t, sh.lo + i, H263Error(
+                        f"frame {t} stream {sh.lo + i}: header rejected by "
+                        f"device front-end prep (rc {int(sh.prep.rc[i])})"))
+                # Failed lanes stage no payload and consume nothing.
+                meta_np[t, 5] += woff
+                woff += int(np.sum(np.where(
+                    okm, (sh.prep._lengths + 3) // 4, 0)))
+            # The copied bytes past the payload's end (what failed lanes
+            # left unused, the spare word) may hold an earlier call's bytes.
+            flat[woff * 4: total] = 0
+        return sh.copy_to_device(stage, meta), first
+
     def decode_steps(self, frame_lists: Sequence[Sequence[Optional[bytes]]]):
         """Decode a window of T frames per stream: `frame_lists` holds T
         sequences of S buffers.  Returns uint8 (ys, cbs, crs) on the device,
-        [T, S, ...]; the per-(frame, stream) status is `last_status_steps`
-        (int32 [T, S]) and the last frame's `last_status`.
+        [T, S, ...] (StreamShards split along the stream axis, 1, with a
+        mesh); the per-(frame, stream) status is `last_status_steps` (int32
+        [T, S]) and the last frame's `last_status`.
 
         Frame for frame it equals T `decode_step` calls: `None` decodes the
         skip frame with the header commit suppressed, a frame over the cap
         decodes as the identity frame, the quantizer and deblock flag are
         committed per frame in order, a failed (frame, stream) gives the
         identity frame for that frame and the later frames decode against
-        the surviving reference, and the first header reject is raised
-        after the window has been dispatched.
+        the surviving reference, and the first header reject (the earliest
+        frame, then the lowest stream) is raised after the window has been
+        dispatched on every shard.
 
-        On the card: the T frames are staged back to back in one pinned
-        buffer (frame t's word offsets rebased by the words before it), one
-        copy of payload and meta, ONE automaton launch over T*S lanes, then
-        T reconstruct launches in stream order, each writing its slices of
-        the [T, S, ...] batches.  No host synchronisation: the call returns
-        once the work is enqueued.
+        On the card, per shard: the T frames are staged back to back in
+        one pinned buffer, one copy of payload and meta, ONE automaton
+        launch over T*S/n lanes, then T reconstruct launches in stream
+        order, each writing its slices of the [T, S/n, ...] batches.  No
+        host synchronisation: the call returns once the work is enqueued.
 
         Left out against the JAX package, whose automaton fills a tape that
         can overflow: `resolve_window_overflows`, the pre-window replay
@@ -336,77 +448,45 @@ class DeviceFrontendDecoder:
         writes its outputs straight and never overflows), and the
         `pallas=` / `unroll=` / `tape_len=` knobs.
         """
-        if self._prep is None:
+        if not self._sorenson:
             raise ValueError("decode_steps requires the native header prep "
                              "(Sorenson streams)")
         T = len(frame_lists)
         if T < 1:
             raise ValueError("empty window")
-        r_lists = [self._staged(bufs) for bufs in frame_lists]
-        wbytes_t = [sum(((len(b) + 3) // 4) * 4 for b in bufs)
-                    for bufs in r_lists]
-        total = sum(wbytes_t) + 4
-        stage, meta = self._next_stage(total, T)
-        flat = stage.numpy().reshape(-1)
-        meta_np = meta.numpy()
-        first_err: Optional[Exception] = None
-        woff = 0  # running word offset into the shared flat buffer
-        with trace_stage("host_parse"):
-            for t, bufs in enumerate(r_lists):
-                # Exact-size view: the prep zero-fills its view's tail.
-                view = flat[woff * 4: woff * 4 + wbytes_t[t]]
-                failed = self._prep.prepare_ragged(bufs, view, meta_np[t])
-                okm = self._prep.rc == 0
-                self._commit(frame_lists[t], okm)
-                if failed and first_err is None:
-                    i = int(np.argmin(okm))
-                    first_err = H263Error(
-                        f"frame {t} stream {i}: header rejected by device "
-                        f"front-end prep (rc {int(self._prep.rc[i])})")
-                # Failed lanes stage no payload and consume nothing.
-                meta_np[t, 5] += woff
-                woff += int(np.sum(np.where(
-                    okm, (self._prep._lengths + 3) // 4, 0)))
-            # The copied bytes past the payload's end (what failed lanes
-            # left unused, the spare word) may hold an earlier call's bytes.
-            flat[woff * 4: total] = 0
-
-        dev_stage, dev_meta = self._copy_to_device(stage, meta)
-        S, dev = self.n, self.device
-        with trace_stage("reconstruct_dispatch"):
-            dense, mvs, inter, status = parse_assemble_cuda(
-                dev_stage, dev_meta, mbh=self.mb_h, mbw=self.mb_w,
-                width=self.w, height=self.h)
-            ys = torch.empty((T, S, self.h, self.w), dtype=torch.uint8,
-                             device=dev)
-            cbs = torch.empty((T, S, self.ch, self.cw), dtype=torch.uint8,
-                              device=dev)
-            crs = torch.empty_like(cbs)
-            for t in range(T):
-                reconstruct_from_dense(dense[t], mvs[t], inter[t], self.ref_y,
-                                       self.ref_cb, self.ref_cr,
-                                       out=(ys[t], cbs[t], crs[t]))
-                self.ref_y, self.ref_cb, self.ref_cr = ys[t], cbs[t], crs[t]
+        for bufs in frame_lists:
+            self._check_len(bufs)
+        staged, rejects = [], []
+        for sh in self._shards:
+            dev_in, first = self._stage_window(sh, frame_lists)
+            staged.append(dev_in)
+            if first is not None:
+                rejects.append(first)
+        outs = self._dispatch(staged)
+        ys, cbs, crs, status = (self._join(x) for x in outs)
+        (self.ref_y, self.ref_cb, self.ref_cr,
+         self.last_status) = (self._join(StreamShards([p[T - 1] for p in x]))
+                              for x in outs)
         self.last_status_steps = status
-        self.last_status = status[T - 1]
-        if first_err is not None:
-            raise first_err
+        if rejects:
+            raise min(rejects, key=lambda r: r[:2])[2]
         return ys, cbs, crs
 
     # -- state ---------------------------------------------------------------
 
     def load_state(self, y, cb, cr, last_quant=None, last_deblock=None):
         """Replace the reference planes (uint8 numpy [S, H, W] and two
-        [S, ch, cw]) and, when given, the per-stream presentation state
-        (last quantizer int [S], last deblock flag bool [S]) — e.g. to
-        continue a GOP that another decoder started."""
+        [S, ch, cw], scattered over the mesh) and, when given, the
+        per-stream presentation state (last quantizer int [S], last
+        deblock flag bool [S]) — e.g. to continue a GOP that another
+        decoder started."""
         shapes = ((self.n, self.h, self.w), (self.n, self.ch, self.cw),
                   (self.n, self.ch, self.cw))
         for a, s in zip((y, cb, cr), shapes):
             if np.shape(a) != s:
                 raise ValueError(f"plane shape {np.shape(a)} != {s}")
         self.ref_y, self.ref_cb, self.ref_cr = (
-            torch.tensor(np.asarray(a, dtype=np.uint8), device=self.device)
+            self._join(place(np.asarray(a, dtype=np.uint8), mesh=self._mesh))
             for a in (y, cb, cr))
         if last_quant is not None:
             self._last_quant[:] = np.asarray(last_quant, dtype=np.int32)
@@ -416,35 +496,50 @@ class DeviceFrontendDecoder:
     def reset_slot_state(self, slot: int, running=None) -> None:
         """Reset one lane to a fresh stream: planes zeroed, no previous
         header, presentation params and status cleared (the pool's
-        slot-recycle contract).  `running` seeds the carried options (a
-        standard stream rebucketed with them); None is a fresh stream."""
-        # Out of place: the planes and status a step returned stay as
-        # they were.
-        idx = torch.tensor([slot], device=self.device)
-        self.ref_y = self.ref_y.index_fill(0, idx, 0)
-        self.ref_cb = self.ref_cb.index_fill(0, idx, 0)
-        self.ref_cr = self.ref_cr.index_fill(0, idx, 0)
+        slot-recycle contract), on the lane's own shard only.  `running`
+        seeds the carried options (a standard stream rebucketed with
+        them); None is a fresh stream."""
+        k, lane = self._shard_of(slot)
+        idx = torch.tensor([lane], device=self._shards[k].device)
+
+        def cleared(x, axis=0):
+            # Out of place: the planes and status a step returned stay as
+            # they were.
+            parts = list(self._split(x, axis))
+            parts[k] = parts[k].index_fill(axis, idx, 0)
+            return self._join(StreamShards(parts, axis))
+
+        self.ref_y = cleared(self.ref_y)
+        self.ref_cb = cleared(self.ref_cb)
+        self.ref_cr = cleared(self.ref_cr)
         self._pictures[slot] = None
         self._running[slot] = (PictureOption.NONE if running is None
                                else running)
         self._last_quant[slot] = 8
         self._last_deblock[slot] = False
         if self.last_status is not None:
-            self.last_status = self.last_status.index_fill(0, idx, 0)
+            self.last_status = cleared(self.last_status)
         if self.last_status_steps is not None:
-            self.last_status_steps = self.last_status_steps.index_fill(
-                1, idx, 0)
+            self.last_status_steps = cleared(self.last_status_steps, 1)
 
     def fetch_status(self) -> np.ndarray:
-        """The last step's per-stream status (int32; 0 = ok).  Waits for
-        the step to finish."""
-        return self.last_status.cpu().numpy()
+        """The last step's per-stream status (int32 [S]; 0 = ok).  Waits
+        for the step to finish."""
+        return np.concatenate([s.cpu().numpy()
+                               for s in self._split(self.last_status)])
 
     def present_rgba(self, deblock: Optional[bool] = None):
-        """RGBA uint8 [S, H, W, 4] of the current planes: per-stream deblock
-        (the stream's advisory flag, or `deblock` for all) + BT.601."""
-        strength, flags = self._params.to_device(
-            QUANT_TO_STRENGTH[self._last_quant & 31],
-            self._last_deblock if deblock is None else deblock)
-        return present_rgba_batched(self.ref_y, self.ref_cb, self.ref_cr,
-                                    strength, flags)
+        """RGBA uint8 [S, H, W, 4] of the current planes (StreamShards with
+        a mesh): per-stream deblock (the stream's advisory flag, or
+        `deblock` for all) + BT.601."""
+        strength = QUANT_TO_STRENGTH[self._last_quant & 31]
+        flags = np.broadcast_to(np.asarray(
+            self._last_deblock if deblock is None else deblock,
+            dtype=np.bool_), (self.n,))
+        params = [sh.params.to_device(strength[sh.lo:sh.hi],
+                                      flags[sh.lo:sh.hi])
+                  for sh in self._shards]
+        planes = (self._split(r) for r in (self.ref_y, self.ref_cb,
+                                           self.ref_cr))
+        return self._join(self._present_fn(
+            *planes, *(StreamShards(p) for p in zip(*params))))

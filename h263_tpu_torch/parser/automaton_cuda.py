@@ -9,7 +9,9 @@ tensor launches the kernel or raises.
 A window of T frames (meta [T, 6, S], every frame's payload in the one flat
 buffer) is one launch over T*S lanes, lane t*S + s: a frame's entropy decode
 reads nothing of the frame before it, so the window's T frames run side by
-side and only their reconstructions run in order.
+side and only their reconstructions run in order.  `whole_step` is the
+device half of a device-front-end step on one device: this kernel, then
+the reconstruction.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..decoder.reconstruct import reconstruct_from_dense
 from ..vlc_tables import ZIGZAG_TO_ROWMAJOR
 from .device_frontend import parse_assemble
 from .tables import (
@@ -97,12 +100,36 @@ def _parse_assemble(payload_u8, meta, mbh, mbw, width, height, launch_shape):
     ext_x = _extended_range_for_dim(width if width else 16 * mbw, True)
     ext_y = _extended_range_for_dim(height if height else 16 * mbh, False)
     tables = kernels.device_table("automaton", TABLES, dev)
-    rc = kernels.lib().h263_automaton(
-        payload_u8.data_ptr(), payload_u8.numel(), meta.data_ptr(), S,
-        lead[-1], mbh, mbw, ext_x, ext_y, tables.data_ptr(), dense.data_ptr(),
-        mvs.data_ptr(), inter.data_ptr(), status.data_ptr(), *launch_shape,
-        kernels.stream_handle(dev))
-    kernels.check(rc, "h263_automaton")
+    kernels.launch(
+        "h263_automaton", dev, payload_u8.data_ptr(), payload_u8.numel(),
+        meta.data_ptr(), S, lead[-1], mbh, mbw, ext_x, ext_y,
+        tables.data_ptr(), dense.data_ptr(), mvs.data_ptr(), inter.data_ptr(),
+        status.data_ptr(), *launch_shape)
     launches += 1
     return tuple(t.view(*lead, *t.shape[1:]) for t in (
         dense, mvs, inter.view(torch.bool), status[0], status[1]))
+
+
+def whole_step(payload, meta, ref_y, ref_cb, ref_cr, *, mbh, mbw, width,
+               height):
+    """The device half of a step on one device, the port's
+    `make_whole_step`: a staged ragged payload (uint8 [Nw, 4]) and meta
+    (int32 [6, S]) -> the entropy automaton -> the reconstruction against
+    the reference planes -> (y, cb, cr, status).  With meta [T, 6, S] (a
+    window) it is one automaton launch over T*S lanes, then T
+    reconstructions in stream order, each against the frame before, into
+    [T, S, ...] batches; status is then [T, S]."""
+    dense, mvs, inter, status = parse_assemble_cuda(
+        payload, meta, mbh=mbh, mbw=mbw, width=width, height=height)
+    if meta.dim() == 2:
+        return (*reconstruct_from_dense(dense, mvs, inter, ref_y, ref_cb,
+                                        ref_cr), status)
+    T, dev = meta.shape[0], payload.device
+    ys = torch.empty((T, *ref_y.shape), dtype=torch.uint8, device=dev)
+    cbs = torch.empty((T, *ref_cb.shape), dtype=torch.uint8, device=dev)
+    crs = torch.empty_like(cbs)
+    for t in range(T):
+        reconstruct_from_dense(dense[t], mvs[t], inter[t], ref_y, ref_cb,
+                               ref_cr, out=(ys[t], cbs[t], crs[t]))
+        ref_y, ref_cb, ref_cr = ys[t], cbs[t], crs[t]
+    return ys, cbs, crs, status

@@ -27,8 +27,11 @@ overflow); any other unknown keyword still raises.  v1 blobs are pickles
 of the JAX package's own classes, and unpickling them would import it: the
 loaders refuse them.
 
-Saving copies the reference planes to host memory, a sync point.  Loading
-puts them on `device` ("cuda" by default, or "cpu").
+Saving copies the reference planes to host memory (a mesh decoder's
+shards gathered), a sync point.  Loading puts them on `device` ("cuda" by
+default, or "cpu"), or scatters them over `mesh=` for the two batched
+decoders: a blob does not record whether its decoder was sharded, so it
+resumes sharded or not, over any mesh whose size divides its streams.
 
 Covered surfaces: the single-stream `H263Decoder`, `BatchedStreamDecoder`,
 `DeviceFrontendDecoder`, and `StreamPool` (whole-pool membership +
@@ -43,6 +46,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import StreamShards, place
 
 FORMAT_VERSION = 2
 _ZIP_MAGIC = b"PK\x03\x04"
@@ -188,11 +193,17 @@ def _unpack(blob: bytes, kind: str):
 
 
 def _host(t) -> np.ndarray:
+    """A device tensor, or a mesh decoder's StreamShards gathered, as a
+    host copy."""
+    if isinstance(t, StreamShards):
+        return t.gather("cpu").numpy()
     return t.to("cpu", copy=True).numpy()
 
 
 def _on(device, a) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+
 
 
 def _without_jax_knobs(kwargs: dict) -> dict:
@@ -289,9 +300,9 @@ def save_batched_state(dec) -> bytes:
 
 def load_batched_state(blob: bytes, **kwargs):
     """Reconstruct a BatchedStreamDecoder from a v2 blob of either package.
-    `kwargs` go to its constructor (`pack_cap`, `device`) over the saved
-    ones; the JAX-only knobs (`coef_transport`, `pallas`, ...) are
-    dropped."""
+    `kwargs` go to its constructor (`pack_cap`, `device` or `mesh`, whose
+    shards the planes are scattered over) over the saved ones; the
+    JAX-only knobs (`coef_transport`, `pallas`, ...) are dropped."""
     from ..parallel.batch import BatchedStreamDecoder
     from ..types import DecoderOption, PictureOption
 
@@ -301,8 +312,7 @@ def load_batched_state(blob: bytes, **kwargs):
     dec = BatchedStreamDecoder(meta["n"], meta["w"], meta["h"],
                                DecoderOption(meta["decoder_options"]),
                                **kwargs)
-    dec.ref_y, dec.ref_cb, dec.ref_cr = (
-        _on(dec.device, z[k]) for k in ("ref_y", "ref_cb", "ref_cr"))
+    dec.load_state(z["ref_y"], z["ref_cb"], z["ref_cr"])
     # Optional members: absent in blobs written before these fields were
     # checkpointed; the defaults (fresh-decoder values) then apply.
     dec._mv_full = bool(meta.get("mv_full", False))
@@ -349,8 +359,9 @@ def save_device_frontend_state(dec) -> bytes:
 
 def load_device_frontend_state(blob: bytes, **kwargs):
     """Reconstruct a DeviceFrontendDecoder from a v2 blob of either
-    package.  `kwargs` go to its constructor (`max_frame_bytes`, `device`)
-    over the saved ones; the JAX-only knobs (`tape_len`, `harness`,
+    package.  `kwargs` go to its constructor (`max_frame_bytes`, `device`
+    or `mesh`, whose shards the planes and status are scattered over) over
+    the saved ones; the JAX-only knobs (`tape_len`, `harness`,
     `unroll`, `pallas`, `payload`) are dropped, and so are a JAX blob's
     last buffers (the input of `resolve_overflows`)."""
     from ..parallel.device_batch import DeviceFrontendDecoder
@@ -362,12 +373,10 @@ def load_device_frontend_state(blob: bytes, **kwargs):
     dec = DeviceFrontendDecoder(meta["n"], meta["w"], meta["h"],
                                 DecoderOption(meta["decoder_options"]),
                                 **ctor)
-    dec.ref_y, dec.ref_cb, dec.ref_cr = (
-        _on(dec.device, z[k]) for k in ("ref_y", "ref_cb", "ref_cr"))
-    dec._last_quant[:] = z["last_quant"]
-    dec._last_deblock[:] = z["last_deblock"]
+    dec.load_state(z["ref_y"], z["ref_cb"], z["ref_cr"], z["last_quant"],
+                   z["last_deblock"])
     if meta["has_status"]:
-        dec.last_status = _on(dec.device, z["status"])
+        dec.last_status = place(z["status"], dec.device, dec.mesh)
     dec._pictures = [picture_from_dict(p) for p in meta["pictures"]]
     dec._running = [PictureOption(r)
                     for r in meta.get("running", [0] * meta["n"])]

@@ -30,8 +30,8 @@ from h263_tpu.testing.fuzz import _rand_fused_gop  # noqa: E402
 from h263_tpu.types import H263Error as JaxH263Error  # noqa: E402
 from h263_tpu.utils import trace as jtrace  # noqa: E402
 from h263_tpu_torch import BatchedStreamDecoder  # noqa: E402
+from h263_tpu_torch.decoder import reconstruct as trec  # noqa: E402
 from h263_tpu_torch.ops.idct import derive_classes  # noqa: E402
-from h263_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from h263_tpu_torch.testing.corpora import rich_gop  # noqa: E402
 from h263_tpu_torch.testing.encoder import (  # noqa: E402
     MBSpec,
@@ -256,9 +256,10 @@ def test_failed_pipelined_step_does_not_poison_its_buffer(monkeypatch):
             return real(*args, **kwargs)
         return fn
 
+    # The decoder's sharded programs look these up at each call.
     for name in ("reconstruct_frame_packed_d24_fused",
                  "reconstruct_frame_packed_d24"):
-        monkeypatch.setattr(tbatch, name, flaky(getattr(tbatch, name)))
+        monkeypatch.setattr(trec, name, flaky(getattr(trec, name)))
     dec = BatchedStreamDecoder(n, w, h, device="cpu")
     golden = BatchedStreamDecoder(n, w, h, device="cpu")
     fut0 = dec.submit_step([frames[0]] * n)

@@ -9,7 +9,9 @@ continued decode equals the JAX decoder's, plane for plane.  The port's
 blobs round-trip within the port, a port decoder blob resumes in the JAX
 decoder, and v1 blobs (pickles of the JAX package's classes) are refused.
 The JAX-only constructor knobs of a JAX blob or a caller are dropped by
-name; any other unknown keyword still raises.  All on the CPU.
+name; any other unknown keyword still raises.  The two batched decoders'
+blobs move between sharded (`mesh=`) and unsharded decoders both ways.
+All on the CPU.
 """
 
 import pickle
@@ -222,6 +224,49 @@ def test_port_standard_device_frontend_round_trip():
     for t in range(2, 4):
         bufs = [s[t] for s in streams]
         _eq(again.decode_step(bufs), whole.decode_step(bufs), f"step {t}")
+
+
+# -- mesh decoders -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["batched", "device_frontend"])
+def test_blobs_move_between_mesh_and_unsharded_decoders(kind):
+    """A JAX v2 blob resumes in a port decoder sharded over ["cpu"] * 4
+    and continues as the JAX decoder does; that mesh decoder's blob
+    resumes unsharded, and an unsharded blob over the mesh, each equal to
+    the uninterrupted decode on the next frames."""
+    from h263_tpu_torch import make_stream_mesh
+
+    save, load = {
+        "batched": (tck.save_batched_state, tck.load_batched_state),
+        "device_frontend": (tck.save_device_frontend_state,
+                            tck.load_device_frontend_state)}[kind]
+    jax_save = {"batched": jck.save_batched_state,
+                "device_frontend": jck.save_device_frontend_state}[kind]
+    n = 4
+    streams = [_gop(60 + i, n=5) for i in range(n)]
+    jd = (JaxBatched(n, 32, 32, SOR) if kind == "batched"
+          else JaxDevice(n, 32, 32, SOR, pallas="off"))
+    for t in range(2):
+        jd.decode_step([s[t] for s in streams])
+    mesh = make_stream_mesh(["cpu"] * 4)
+    sharded = load(jax_save(jd), mesh=mesh)
+    assert sharded.mesh is mesh and len(sharded.ref_y) == 4
+    if kind == "device_frontend":
+        np.testing.assert_array_equal(sharded.fetch_status(),
+                                      jd.fetch_status())
+    bufs = [s[2] for s in streams]
+    _eq(sharded.decode_step(bufs), jd.decode_step(bufs), "jax -> mesh")
+
+    plain = load(save(sharded), device=DEV)       # mesh -> unsharded
+    assert plain.mesh is None
+    bufs = [s[3] for s in streams]
+    _eq(plain.decode_step(bufs), jd.decode_step(bufs), "mesh -> unsharded")
+    again = load(save(plain), mesh=mesh)          # unsharded -> mesh
+    bufs = [s[4] for s in streams]
+    _eq(again.decode_step(bufs), jd.decode_step(bufs), "unsharded -> mesh")
+    _eq((again.ref_y, again.ref_cb, again.ref_cr),
+        (jd.ref_y, jd.ref_cb, jd.ref_cr))
 
 
 # -- pools -------------------------------------------------------------------

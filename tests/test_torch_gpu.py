@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from h263_tpu_torch import BatchedStreamDecoder  # noqa: E402
 from h263_tpu_torch import DeviceFrontendDecoder  # noqa: E402
 from h263_tpu_torch import DecoderOption, H263Decoder  # noqa: E402
+from h263_tpu_torch import StreamShards, make_stream_mesh  # noqa: E402
 from h263_tpu_torch.decoder.reconstruct import (  # noqa: E402
     present_rgba_batched,
 )
@@ -678,3 +679,224 @@ def test_cuda_single_decoder_matches_cpu_decoder_across_size_changes(cuda):
                                           cd.last_picture_rgba(deblock))
         assert (reconstruct_cuda.launches, present_cuda.launches) == (
             before[0] + 1, before[1] + 3)
+
+
+# -- several cards, and meshes -------------------------------------------------
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda:1")
+
+
+def _host(x):
+    return (x.gather("cpu") if isinstance(x, StreamShards) else x.cpu())
+
+
+def _run(dec, bufs, **kw):
+    """decode_step's planes on the host, or the error's (class, text)."""
+    try:
+        return [_host(p) for p in dec.decode_step(bufs, **kw)]
+    except H263Error as e:
+        return (type(e).__name__, str(e))
+
+
+def _gop_lists(S, T, seed):
+    """T lists of S rich-GOP frames at 48x32, with lanes cut on both sides
+    of the middle (a shard boundary of a two-shard mesh) in frame 2 and a
+    header reject in frame 3."""
+    streams = [rich_gop(seed + i, n=T) for i in range(S)]
+    lists = [[s[t] for s in streams] for t in range(T)]
+    mid = S // 2
+    lists[2][mid - 1] = lists[2][mid - 1][:14]
+    lists[2][mid] = lists[2][mid][:14]
+    lists[3][mid + 1] = b"\x00\x01garbage"
+    return lists
+
+
+def _same_decoders(decs, lists, window=None, masks=()):
+    """Step every decoder alike; planes, errors and statuses equal."""
+    for t, bufs in enumerate(lists):
+        mask = [i != 1 for i in range(len(bufs))] if t in masks else None
+        outs = [_run(d, bufs, mask=mask) for d in decs]
+        for o in outs[1:]:
+            if isinstance(o, tuple):
+                assert o == outs[0], t
+            else:
+                for a, b in zip(o, outs[0]):
+                    assert torch.equal(a, b), t
+        if hasattr(decs[0], "fetch_status"):
+            for d in decs[1:]:
+                np.testing.assert_array_equal(d.fetch_status(),
+                                              decs[0].fetch_status())
+    if window is not None:
+        outs = []
+        for d in decs:
+            try:
+                outs.append([_host(p) for p in d.decode_steps(window)])
+            except H263Error as e:
+                outs.append(str(e))
+        for o in outs[1:]:
+            if isinstance(o, str):
+                assert o == outs[0]
+            else:
+                assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+        for d in decs[1:]:
+            assert torch.equal(_host(d.last_status_steps),
+                               _host(decs[0].last_status_steps))
+    for deblock in (None, True):
+        want = _host(decs[0].present_rgba(deblock=deblock))
+        for d in decs[1:]:
+            assert torch.equal(_host(d.present_rgba(deblock=deblock)), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frontend", ["device", "host"])
+def test_two_shard_mesh_on_one_card_equals_unsharded(cuda, frontend):
+    """A mesh of two shards on cuda:0 against the unsharded decoder: cut
+    lanes on both sides of the boundary, a header reject (its global
+    stream), a masked slot, a window (device front-end), a PackOverflow
+    step and the pipeline (host front-end), present_rgba."""
+    S, T = 8, 6
+    lists = _gop_lists(S, T, 2000)
+    mesh = make_stream_mesh(["cuda:0", "cuda:0"])
+    cls = DeviceFrontendDecoder if frontend == "device" else \
+        BatchedStreamDecoder
+    decs = [cls(S, 48, 32), cls(S, 48, 32, mesh=mesh)]
+    assert decs[1].mesh.distinct == 1
+    if frontend == "device":
+        _same_decoders(decs, lists[:4], window=lists[4:], masks=(1,))
+        return
+    _same_decoders(decs, lists[:2] + [lists[4]], masks=(1,))
+    small = [BatchedStreamDecoder(S, 48, 32, pack_cap=8),
+             BatchedStreamDecoder(S, 48, 32, pack_cap=8, mesh=mesh)]
+    _same_decoders(small, lists[:2])
+    outs = [[[_host(p) for p in planes]
+             for planes in d.decode_stream_pipelined(iter(lists[:2]))]
+            for d in (BatchedStreamDecoder(S, 48, 32),
+                      BatchedStreamDecoder(S, 48, 32, mesh=mesh))]
+    for a, b in zip(*outs):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_on_the_second_card_equal_plain(two_cards):
+    """Each wrapper launches on cuda:1 while cuda:0 is current, with its
+    output on cuda:1 and equal to the plain version."""
+    dev = two_cards
+    assert torch.cuda.current_device() == 0
+    rng = np.random.default_rng(31)
+    c = torch.as_tensor(rng.integers(-900, 900, (500, 64)).astype(np.int16))
+    got = idct_cuda.idct_residual_cuda(c.to(dev))
+    assert got.device == dev
+    assert torch.equal(got.cpu(), idct_residual_fused(c))
+
+    S, h, w = 3, 48, 64
+    mbh, mbw = 3, 4
+    dense = torch.as_tensor(rng.integers(-200, 200, (S, 6 * mbh * mbw, 64)
+                                         ).astype(np.int16))
+    dense[:, ::2] = 0
+    mvs = torch.as_tensor(rng.integers(-40, 41, (S, mbh, mbw, 4, 2)
+                                       ).astype(np.int16))
+    inter = torch.as_tensor(rng.random((S, mbh, mbw)) < 0.7)
+    planes = [torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8))
+              for shape in ((S, h, w), (S, h // 2, w // 2),
+                            (S, h // 2, w // 2))]
+    args = [dense, mvs, inter, *planes]
+    got = reconstruct_cuda.reconstruct_from_dense_cuda(
+        *(a.to(dev) for a in args))
+    for a, b in zip(got, reconstruct_from_dense_plain(*args)):
+        assert a.device == dev and torch.equal(a.cpu(), b)
+
+    strength = torch.as_tensor(rng.integers(0, 13, S).astype(np.int32))
+    apply = torch.as_tensor(rng.random(S) < 0.7)
+    got = deblock_cuda.deblock_batched_cuda(planes[0].to(dev),
+                                            strength.to(dev), apply.to(dev))
+    assert torch.equal(got.cpu(), deblock_batched(planes[0], strength, apply))
+    got = yuv_cuda.yuv420_to_rgba_cuda(*(p.to(dev) for p in planes))
+    assert torch.equal(got.cpu(), yuv420_to_rgba(*planes))
+    got = present_cuda.present_rgba_cuda(
+        *(p.to(dev) for p in planes), strength.to(dev), apply.to(dev))
+    assert torch.equal(got.cpu(), present_rgba_plain(*planes, strength,
+                                                     apply))
+    for mv_full in (None, False, True):
+        rows = torch.as_tensor(d24_rows(rng, S, 300, mbh, mbw, mv_full))
+        if mv_full is None:
+            got = (d24_cuda.d24_to_dense_cuda(rows.to(dev), mbh, mbw),)
+            want = (d24_to_dense(rows, mbh, mbw),)
+        else:
+            got = d24_cuda.unpack_fused_cuda(rows.to(dev), mbh, mbw, mv_full)
+            want = unpack_fused(rows, mbh, mbw, mv_full)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+    frames = rich_gop(41) + [rich_gop(42)[1][:15]]
+    prep = DevicePrepBatch(len(frames), 48, 32)
+    total = sum(((len(f) + 3) // 4) * 4 for f in frames)
+    stage = np.zeros((total // 4 + 1, 4), np.uint8)
+    meta = np.zeros((6, len(frames)), np.int32)
+    prep.prepare_ragged(frames, stage, meta)
+    stage, meta = torch.as_tensor(stage), torch.as_tensor(meta)
+    got = automaton_cuda.parse_assemble_cuda(stage.to(dev), meta.to(dev),
+                                             mbh=2, mbw=3)
+    want = tdf.parse_assemble(stage, meta, mbh=2, mbw=3)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.gpu
+def test_decoders_on_the_second_card_equal_the_first(two_cards):
+    """device="cuda:1" decoders of each kind (a window included) equal
+    cuda:0's at every frame, with cuda:0 current throughout."""
+    S, T = 6, 6
+    lists = _gop_lists(S, T, 2100)
+    for cls in (DeviceFrontendDecoder, BatchedStreamDecoder):
+        decs = [cls(S, 48, 32, device="cuda:0"),
+                cls(S, 48, 32, device="cuda:1")]
+        assert decs[1].ref_y.device == two_cards
+        _same_decoders(decs, lists[:4], masks=(1,),
+                       window=lists[4:] if cls is DeviceFrontendDecoder
+                       else None)
+    singles = [H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM,
+                           device=d) for d in ("cuda:0", "cuda:1")]
+    for t, buf in enumerate(resize_sequence()):
+        pics = [d.decode_next_picture(buf) for d in singles]
+        assert pics[1].luma.device == two_cards
+        for a, b in zip(pics[0].as_yuv(), pics[1].as_yuv()):
+            np.testing.assert_array_equal(a, b, err_msg=f"frame {t}")
+        np.testing.assert_array_equal(singles[0].last_picture_rgba(True),
+                                      singles[1].last_picture_rgba(True))
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frontend", ["device", "host"])
+def test_mesh_over_every_card_equals_unsharded(two_cards, frontend):
+    n = torch.cuda.device_count()
+    S, T = 4 * n, 6
+    lists = _gop_lists(S, T, 2200)
+    mesh = make_stream_mesh()
+    assert mesh.distinct == n
+    cls = DeviceFrontendDecoder if frontend == "device" else \
+        BatchedStreamDecoder
+    decs = [cls(S, 48, 32), cls(S, 48, 32, mesh=mesh)]
+    _same_decoders(decs, lists[:4], masks=(1,),
+                   window=lists[4:] if frontend == "device" else None)
+    assert decs[1].ref_y.device_set == set(mesh.devices)
+
+
+@pytest.mark.gpu
+def test_serving_pool_example_on_the_card(cuda):
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "h263_tpu_torch.examples.serving_pool",
+         "--steps", "8"], cwd=str(root), capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(root)))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "bit-exact against single-stream decoders" in proc.stdout

@@ -43,10 +43,14 @@ def test_importing_every_module_leaves_out_jax_and_the_jax_package():
     mods, bad = proc.stdout.strip().splitlines()
     mods = set(mods.split())
     assert len(mods) >= 30 and bad == "[]", proc.stdout
-    # The single-stream slice's modules are among those imported.
+    # The single-stream slice's modules, the sharding and the examples are
+    # among those imported.
     assert {"h263_tpu_torch.decoder.state", "h263_tpu_torch.decoder.picture",
             "h263_tpu_torch.io.stream", "h263_tpu_torch.utils.checkpoint",
-            "h263_tpu_torch.__main__"} <= mods, sorted(mods)
+            "h263_tpu_torch.__main__", "h263_tpu_torch.parallel.sharding",
+            "h263_tpu_torch.examples.decode_flv",
+            "h263_tpu_torch.examples.batched_streams",
+            "h263_tpu_torch.examples.serving_pool"} <= mods, sorted(mods)
 
 
 @pytest.mark.parametrize("rel", SOURCES)
