@@ -152,11 +152,30 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      dispatch) and back-to-back frames/s of each mesh and of the unsharded
      decoders at the same S, in turns.
 
+  15. the differential fuzz library (`h263_tpu_torch/testing/fuzz.py`) on
+     the card: (a) `run_campaign(device="cuda")` for all eight flavors
+     (sorenson, standard, umv: native vs Python parser; d24: the unpack
+     kernel; device, device_std, device_umv: the automaton; fused: the
+     packed and dense host decoders and the device front-end, step by
+     step), 1100 cases a flavor (the seeds of the JAX tests), 80 fused
+     scenarios; any mismatch fails, and each flavor's cases, skips and
+     cases/s are printed; (b) fuzzed CIF lanes (device and device_std
+     bases, 16 cases a base) as one automaton launch of 1024 lanes and one
+     of 4224 (past the 1-lane / 2-lane-per-warp switch), every lane equal
+     to the native host parse of its case (the Python parse under carried
+     MODIFIED_QUANTIZATION), the first 1024 lanes of both launches equal,
+     ok lanes and errored lanes of at least 5 classes; and the "device"
+     campaign's 1100 lanes at 96x80 in one launch equal to the plain
+     automaton on the card; (c) the d24 rows of 1024 of those CIF cases
+     in one unpack launch, equal to the plain unpack on the card and to
+     the Python dense front-end.
+
 The kernels line's launch counts are those of phases 8-12, of phase 13's
 (a)-(c) decoder runs (each run with the counts set to 0 just before it),
-and of phase 14's mesh decoders' runs (each with the counts set to 0
+of phase 14's mesh decoders' runs (each with the counts set to 0
 just before it and read just after it, every card synchronised at both
-ends; the unsharded references left out).
+ends; the unsharded references left out), and of phase 15's campaigns
+and its CIF automaton and d24 launches (counted the same way).
 
     python3 chip_smoke.py --split-ab DIR...
 
@@ -3665,6 +3684,234 @@ def phase_mesh(torch, streams, digests, rng):
     return counted.total
 
 
+# Phase 15: the fuzz library (h263_tpu_torch/testing/fuzz.py) on the card.
+# (flavor, seed, bases, mutants a base); "fused" counts scenarios.  The
+# seeds are the JAX tests'.
+FUZZ_CAMPAIGNS = [
+    ("sorenson", 20260816, 100, 10),
+    ("standard", 8, 100, 10),
+    ("umv", 17, 100, 10),
+    ("d24", 3, 100, 10),
+    ("device", 11, 100, 10),
+    ("device_std", 51, 100, 10),
+    ("device_umv", 71, 100, 10),
+    ("fused", 31, 80, 0),
+]
+FUZZ_KERNELS = {"d24": ("d24_unpack",), "device": ("entropy_automaton",),
+                "device_std": ("entropy_automaton",),
+                "device_umv": ("entropy_automaton",),
+                "fused": ("d24_unpack", "entropy_automaton", "reconstruct")}
+FUZZ_CIF_BASES = 264      # alternately device and device_std bases
+FUZZ_CIF_MUTANTS = 15     # 264 * 16 = 4224 lanes
+FUZZ_SMALL = 1024         # lanes of the first launch, rows of the d24 launch
+FUZZ_SEED = 15
+
+
+def fuzz_campaigns(torch, counted, smi):
+    """(a) every flavor's campaign on the card; fails on any mismatch."""
+    from h263_tpu_torch.testing import fuzz
+
+    for flavor, seed, n, m in FUZZ_CAMPAIGNS:
+        failures, notes = [], {}
+        before = dict(counted.total)
+        t0 = time.perf_counter()
+        with counted.run():
+            total, fails = fuzz.run_campaign(
+                seed=seed, n_base=n, mutations_per_base=m, flavor=flavor,
+                device=DEVICE, notes=notes,
+                on_fail=lambda tag, why: failures.append((tag, why)))
+        secs = time.perf_counter() - t0
+        got = {k: counted.total.get(k, 0) - before.get(k, 0)
+               for k in FUZZ_KERNELS.get(flavor, ())}
+        log(f"fuzz {flavor}: {total} cases, {fails} mismatches, skips "
+            f"{dict(notes)}, {secs:.2f} s, {total / secs:.1f} cases/s; "
+            f"launches {got} ({smi})")
+        if fails:
+            fail(f"fuzz {flavor}: {fails} mismatches, first "
+                 f"{failures[:3]}")
+        if any(v < 1 for v in got.values()):
+            fail(f"fuzz {flavor}: a kernel of the flavor was not launched")
+
+
+def fuzz_cif_cases(rng):
+    """(b) fuzzed CIF lanes: FUZZ_CIF_BASES bases of the device and
+    device_std generators in turn, each followed by FUZZ_CIF_MUTANTS
+    mutants (a splice takes another base's frame)."""
+    from h263_tpu_torch.testing import fuzz
+
+    bases = []
+    for k in range(FUZZ_CIF_BASES):
+        bases += fuzz._cases_for(("device", "device_std")[k % 2], rng, 1, 0,
+                                 W, H)
+    cases = []
+    for base in bases:
+        cases.append(base)
+        for _ in range(FUZZ_CIF_MUTANTS):
+            cases.append((fuzz._mutate(
+                rng, base[0],
+                lambda: bases[int(rng.integers(len(bases)))][0]),
+                *base[1:]))
+    return cases
+
+
+def fuzz_cif_lanes(torch, counted, smi, cases):
+    """(b) the automaton over the CIF cases in one launch of FUZZ_SMALL
+    lanes and one of all of them, every lane against the host parse of its
+    case: the native parse, or the Python parse for a lane under carried
+    MODIFIED_QUANTIZATION (the native parser has no MQ flag, ROADMAP Queue
+    3).  Returns the status histogram by class."""
+    from h263_tpu_torch.parser import automaton_cuda
+    from h263_tpu_torch.testing import fuzz
+    from h263_tpu_torch.types import PictureOption
+
+    t0 = time.perf_counter()
+    refs = []
+    payload, meta, preps = fuzz.device_lanes(cases, W, H)
+    for (buf, opts, _, pic), prep in zip(cases, preps):
+        if prep is None:
+            refs.append(None)
+            continue
+        mq = bool(prep[1] & PictureOption.MODIFIED_QUANTIZATION)
+        fn = fuzz._outcome_python if mq else fuzz._outcome_native
+        refs.append((fuzz._outcome(fn, buf, W, H, opts, prep[1], pic),
+                     "python" if mq else "native"))
+    host_s = time.perf_counter() - t0
+    outs = {}
+    for n in (FUZZ_SMALL, len(cases)):
+        p, m, _ = fuzz.device_lanes(cases[:n], W, H)
+        pt, mt = torch.as_tensor(p).to(DEVICE), torch.as_tensor(m).to(DEVICE)
+        with counted.run():
+            got = automaton_cuda.parse_assemble_cuda(
+                pt, mt, mbh=H // 16, mbw=W // 16, width=W, height=H)
+        ms = cuda_ms(lambda: automaton_cuda.parse_assemble_cuda(
+            pt, mt, mbh=H // 16, mbw=W // 16, width=W, height=H), 3)
+        outs[n] = tuple(t.cpu().numpy() for t in got)
+        log(f"fuzz CIF lanes: one automaton launch over {n} lanes, "
+            f"{ms:.3f} ms a call ({smi})")
+        del pt, mt, got
+    small, big = outs[FUZZ_SMALL], outs[len(cases)]
+    for name, a, b in zip(("dense", "mvs", "inter", "status"), small, big):
+        if not np.array_equal(a, b[:FUZZ_SMALL]):
+            fail(f"fuzz CIF lanes: {name} of the first {FUZZ_SMALL} lanes "
+                 f"of the {len(cases)}-lane launch differs from the "
+                 f"{FUZZ_SMALL}-lane launch")
+    dense, mvs, inter, status = big
+    hist, bad = {}, []
+    for k, (ref, st) in enumerate(zip(refs, status)):
+        if ref is None:
+            hist["header-reject"] = hist.get("header-reject", 0) + 1
+            continue
+        ok, why = fuzz.device_verdict(ref[0], dense[k], mvs[k], inter[k],
+                                      int(st), host=ref[1])
+        if not ok:
+            bad.append((k, why))
+        cls = fuzz.status_error_class(int(st))
+        key = "ok" if st == 0 else cls.__name__ if cls else f"status {st}"
+        hist[key] = hist.get(key, 0) + 1
+    log(f"fuzz CIF lanes: {len(cases)} lanes ({FUZZ_CIF_BASES} bases x "
+        f"{FUZZ_CIF_MUTANTS + 1}), {len(bad)} differ from the host parse; "
+        f"statuses by class {hist}; host parses {host_s:.2f} s ({smi})")
+    if bad:
+        fail(f"fuzz CIF lanes: {len(bad)} lanes differ from the host parse, "
+             f"first {bad[:3]}")
+    errors = [k for k in hist if k not in ("ok", "header-reject")]
+    if not hist.get("ok") or len(errors) < 5:
+        fail(f"fuzz CIF lanes: the set must hold ok lanes and errored lanes "
+             f"of at least 5 classes: {hist}")
+    return hist
+
+
+def fuzz_plain(torch, smi):
+    """(b) one automaton launch over all the lanes of (a)'s "device"
+    campaign (96x80) against its plain version on the card."""
+    from h263_tpu_torch.parser import automaton_cuda
+    from h263_tpu_torch.parser.device_frontend import parse_assemble
+    from h263_tpu_torch.testing import fuzz
+
+    seed, n, m = next((s, n, m) for f, s, n, m in FUZZ_CAMPAIGNS
+                      if f == "device")
+    cases = fuzz._cases_for("device", np.random.default_rng(seed), n, m, 96,
+                            80)
+    p, m, _ = fuzz.device_lanes(cases, 96, 80)
+    pt, mt = torch.as_tensor(p).to(DEVICE), torch.as_tensor(m).to(DEVICE)
+    got = automaton_cuda.parse_assemble_cuda(pt, mt, mbh=5, mbw=6, width=96,
+                                             height=80)
+    t0 = time.perf_counter()
+    want = parse_assemble(pt, mt, mbh=5, mbw=6, width=96, height=80)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max(max_err(torch, a, b) for a, b in zip(got, want))
+    log(f"fuzz plain: {len(cases)} lanes at 96x80, the kernel against the "
+        f"plain automaton on the card: max_abs_err={err} (dense, MVs, INTER, "
+        f"status); plain {plain_s:.1f} s ({smi})")
+    if err:
+        fail("fuzz plain: the automaton kernel differs from its plain "
+             "version on the device campaign's lanes")
+
+
+def fuzz_d24(torch, counted, smi, cases):
+    """(c) the d24 rows of the CIF Sorenson cases (the d24 flavor's
+    generator) in one unpack launch of FUZZ_SMALL rows, against the plain
+    unpack on the card and the Python dense front-end."""
+    from h263_tpu_torch.ops.d24 import d24_to_dense
+    from h263_tpu_torch.ops.d24_cuda import d24_to_dense_cuda
+    from h263_tpu_torch.testing import fuzz
+    from h263_tpu_torch.types import DecoderOption, PictureOption
+
+    sor = [c[0] for c in cases
+           if c[1] & DecoderOption.SORENSON_SPARK_BITSTREAM][:FUZZ_SMALL]
+    if len(sor) < FUZZ_SMALL:
+        fail(f"fuzz d24: {len(sor)} Sorenson CIF cases, {FUZZ_SMALL} needed")
+    emits = [fuzz.d24_emit(b, W, H) for b in sor]
+    rows = torch.as_tensor(np.stack([e[0] for e in emits])).to(DEVICE)
+    with counted.run():
+        dense = d24_to_dense_cuda(rows, H // 16, W // 16)
+    ms = cuda_ms(lambda: d24_to_dense_cuda(rows, H // 16, W // 16), 10)
+    err = max_err(torch, dense, d24_to_dense(rows, H // 16, W // 16))
+    dense = dense.cpu().numpy()
+    t0 = time.perf_counter()
+    bad, notes = [], {}
+    for k, (buf, e) in enumerate(zip(sor, emits)):
+        py = fuzz._outcome(fuzz._outcome_python, buf, W, H,
+                           DecoderOption.SORENSON_SPARK_BITSTREAM,
+                           PictureOption.NONE)
+        ok, why = fuzz.d24_verdict(py, e, dense[k])
+        if not ok:
+            bad.append((k, why))
+        notes[e[4] or "ok"] = notes.get(e[4] or "ok", 0) + 1
+    log(f"fuzz d24: one unpack launch over {len(sor)} CIF rows of "
+        f"{rows.shape[1]} bytes, {ms:.3f} ms a call; max_abs_err={err} "
+        f"against the plain unpack on the card; {len(bad)} rows differ from "
+        f"the Python dense front-end (outcomes {notes}; Python parses "
+        f"{time.perf_counter() - t0:.1f} s) ({smi})")
+    if err or bad:
+        fail(f"fuzz d24: rows differ, first {bad[:3]}")
+
+
+def phase_fuzz(torch):
+    """Phase 15: the fuzz library on the card; returns the launches of its
+    counted runs (every campaign, the two CIF automaton launches, the d24
+    launch)."""
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    counted = Counted(torch)
+    fuzz_campaigns(torch, counted, smi)
+    t0 = time.perf_counter()
+    cases = fuzz_cif_cases(np.random.default_rng(FUZZ_SEED))
+    log(f"fuzz CIF lanes: {len(cases)} cases drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fuzz_cif_lanes(torch, counted, smi, cases)
+    fuzz_plain(torch, smi)
+    fuzz_d24(torch, counted, smi, cases)
+    log(f"fuzz: launches of phase 15's counted runs {counted.total}")
+    if min(counted.total.get(k, 0) for k in ("entropy_automaton",
+                                              "d24_unpack",
+                                              "reconstruct")) < 1:
+        fail("a kernel of the fuzz phase was not launched")
+    log(f"phase 15 done in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return counted.total
+
+
 def load_streams(root):
     """(streams: name -> (width, height, frames), the CIF fixture's golden
     luma, the reference digests) of every phase."""
@@ -3779,7 +4026,8 @@ def main() -> int:
         for k, n in more.items():
             launches[k] += n
     single, resize_err = phase_single(torch, root, streams, digests, rng)
-    for more in (single, phase_mesh(torch, streams, digests, rng)):
+    for more in (single, phase_mesh(torch, streams, digests, rng),
+                 phase_fuzz(torch)):
         for k, n in more.items():
             launches[k] += n
     for r in records:

@@ -900,3 +900,63 @@ def test_serving_pool_example_on_the_card(cuda):
         timeout=300, env=dict(os.environ, PYTHONPATH=str(root)))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "bit-exact against single-stream decoders" in proc.stdout
+
+
+FUZZ_DEVICE_FLAVORS = ("d24", "device", "device_std", "device_umv", "fused")
+
+
+def _fuzz_campaign(flavor, device, seed=5):
+    """A small campaign of `testing/fuzz.py` on `device`: (total, notes,
+    mismatches)."""
+    import collections
+
+    from h263_tpu_torch.testing import fuzz
+
+    failures, notes = [], collections.Counter()
+    total, fails = fuzz.run_campaign(
+        seed=seed, n_base=3 if flavor == "fused" else 20,
+        flavor=flavor, device=device, notes=notes,
+        on_fail=lambda tag, why: failures.append((tag, why)))
+    assert fails == len(failures)
+    return total, dict(notes), failures
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flavor", FUZZ_DEVICE_FLAVORS)
+def test_fuzz_campaign_on_the_card(cuda, flavor):
+    """Each kernel flavor of the fuzz library on the card: no mismatch, and
+    its kernels launched."""
+    kernels_of = {"d24": (d24_cuda,), "fused": (d24_cuda, automaton_cuda,
+                                                reconstruct_cuda)}
+    mods = kernels_of.get(flavor, (automaton_cuda,))
+    before = [m.launches for m in mods]
+    total, _, failures = _fuzz_campaign(flavor, "cuda")
+    assert not failures, failures[:5]
+    assert total >= (18 if flavor == "fused" else 220)
+    assert all(m.launches > b for m, b in zip(mods, before))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flavor", ["device", "device_std", "device_umv"])
+def test_fuzz_lanes_match_the_plain_automaton(cuda, flavor):
+    """One automaton launch over a campaign's lanes equals its plain version
+    on the CPU, tensor for tensor and status for status."""
+    from h263_tpu_torch.testing import fuzz
+
+    w, h = (128, 96) if flavor == "device_std" else (96, 80)
+    cases = fuzz._cases_for(flavor, np.random.default_rng(3), 6, 9, w, h)
+    payload, meta, _ = fuzz.device_lanes(cases, w, h)
+    got = fuzz.launch_lanes(payload, meta, w, h, cuda)
+    want = fuzz.launch_lanes(payload, meta, w, h, torch.device("cpu"))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flavor", ["d24", "device", "fused"])
+def test_fuzz_campaign_on_the_second_card(two_cards, flavor):
+    """The same campaign on cuda:1 and cuda:0: no mismatch on either, the
+    same totals and outcomes."""
+    one = _fuzz_campaign(flavor, "cuda:1")
+    zero = _fuzz_campaign(flavor, "cuda:0")
+    assert not one[2] and one == zero
