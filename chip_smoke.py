@@ -170,12 +170,31 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      in one unpack launch, equal to the plain unpack on the card and to
      the Python dense front-end.
 
+  16. the port held to the reference itself, through the digests of
+     `testdata/reference_digests.json` (the numpy reference decoder's):
+     (a) two 60-frame CIF chains (`soak_cif_a`, `soak_cif_b`: intra MBs
+     in P-frames, 4V, DQUANT churn, escapes, uncoded gaps) on alternate
+     lanes of S_MAIN streams through DeviceFrontendDecoder as steps and
+     as windows of 8 (the last of 4), BatchedStreamDecoder,
+     StreamPool(frontend="device") and DeviceFrontendDecoder over two
+     shards of cuda:0: at every frame every lane torch.equal to its
+     chain's first lane on the card and that lane's planes equal to the
+     digests, the RGBA too after every 10th frame (after every window);
+     (b) every frame of the 13 ffmpeg fixtures through H263Decoder, equal
+     to the `ff_<name>` digests, and each last RGBA; (c) p720, longgop
+     and cif16 on S_BIG lanes through both batched front-ends (frames up
+     to 50041 B: `max_frame_bytes` set to the largest), every frame and
+     the last RGBA equal to the digests, peak memory, and one automaton,
+     reconstruct and present launch of the device front-end timed at each
+     size against its bytes bound.
+
 The kernels line's launch counts are those of phases 8-12, of phase 13's
 (a)-(c) decoder runs (each run with the counts set to 0 just before it),
 of phase 14's mesh decoders' runs (each with the counts set to 0
 just before it and read just after it, every card synchronised at both
-ends; the unsharded references left out), and of phase 15's campaigns
-and its CIF automaton and d24 launches (counted the same way).
+ends; the unsharded references left out), of phase 15's campaigns
+and its CIF automaton and d24 launches, and of phase 16's decoder runs
+(counted the same way; its timed launches left out).
 
     python3 chip_smoke.py --split-ab DIR...
 
@@ -2692,14 +2711,15 @@ def _planes_equal(torch, got, want, tag):
 
 
 def single_corpora(torch, streams, digests):
-    """(a) every stream with reference digests through H263Decoder on the
-    card: planes and last_picture_rgba(deblock=True) every frame."""
+    """(a) every 8-frame stream with reference digests (those of
+    `load_streams`; phase 16 takes the longer ones) through H263Decoder on
+    the card: planes and last_picture_rgba(deblock=True) every frame."""
     from h263_tpu_torch import DecoderOption, H263Decoder
     from h263_tpu_torch.testing.corpora import (is_standard, planes_digest,
                                                 rgba_digest)
 
     n = 0
-    for name in sorted(digests):
+    for name in sorted(streams):
         opts = (DecoderOption.NONE if is_standard(name)
                 else DecoderOption.SORENSON_SPARK_BITSTREAM)
         dec = H263Decoder(opts, device=DEVICE)
@@ -3117,7 +3137,7 @@ def phase_single(torch, root, streams, digests, rng):
     checked, resized = single_resize(torch)
     torch.cuda.synchronize()
     launches = read_launches()
-    log(f"single decoder: {n} frames of {len(digests)} corpora equal the "
+    log(f"single decoder: {n} frames of {len(streams)} corpora equal the "
         f"reference digests (planes and RGBA); {sum(len(v[0]) for v in fixtures.values())} "
         f"fixture frames; the resize sequence with {checked} kernel calls "
         f"held against the plain version, {resized} of them at a reference "
@@ -3912,6 +3932,325 @@ def phase_fuzz(torch):
     return counted.total
 
 
+# -- phase 16: the reference on the card --------------------------------------
+
+SOAK_CHAINS = ("soak_cif_a", "soak_cif_b")   # lane i: SOAK_CHAINS[i % 2]
+SOAK_WINDOW = 8           # 60 frames: 7 windows of 8, then one of 4
+PRESENT_EVERY = 10        # presents after frames 9, 19, ..., 59
+BIG_FIXTURES = ("p720", "longgop", "cif16")
+S_BIG = 1024              # lanes of each fixture batched in (c)
+BIG_REPS = 20             # launches of a timing in (c)
+
+
+def is_present_frame(t: int, n: int) -> bool:
+    return t % PRESENT_EVERY == PRESENT_EVERY - 1 or t == n - 1
+
+
+def hold_reference(torch, outs, t, chains, digests, tag, kind="planes"):
+    """`outs` (y, cb, cr [S, ...], or (rgba [S, H, W, 4],) with kind
+    "rgba") of frame t, lane i carrying chains[i % len(chains)]: every lane
+    equals its chain's first lane (on the card), and each first lane's
+    digest is the reference's."""
+    from h263_tpu_torch.testing.corpora import planes_digest, rgba_digest
+
+    n = len(chains)
+    for k, name in enumerate(chains):
+        for x in outs:
+            lanes = x[k::n]
+            if not torch.equal(lanes, lanes[:1].expand_as(lanes)):
+                fail(f"{tag}: frame {t}: a lane of {name} differs from the "
+                     f"chain's first lane ({kind})")
+        first = [x[k].cpu().numpy() for x in outs]
+        got = planes_digest(*first) if kind == "planes" else \
+            rgba_digest(first[0])
+        if got != digests[name][kind][t]:
+            fail(f"{tag}: {name} frame {t}: {kind} differ from the reference "
+                 f"digest")
+
+
+def soak_lists():
+    """The GOP's lists of S_MAIN buffers (lane i on SOAK_CHAINS[i % 2]),
+    and the largest frame's bytes."""
+    from h263_tpu_torch.testing import corpora as C
+
+    gops = [C.soak_gop(C.SOAK_CIF_SEEDS[name], W, H) for name in SOAK_CHAINS]
+    lists = [[gops[i % 2][t] for i in range(S_MAIN)]
+             for t in range(C.SOAK_FRAMES)]
+    return lists, max(len(f) for g in gops for f in g)
+
+
+def soak_device(torch, lists, cap, digests, counted, how):
+    """(a) the device front-end over the chains: "steps", "windows" or
+    "mesh" (two shards on cuda:0, as steps); returns the presents held."""
+    from h263_tpu_torch import DeviceFrontendDecoder, make_stream_mesh
+
+    kw = (dict(mesh=make_stream_mesh(["cuda:0"] * 2)) if how == "mesh"
+          else dict(device=DEVICE))
+    dec = DeviceFrontendDecoder(S_MAIN, W, H, max_frame_bytes=cap, **kw)
+    tag, n, presents = f"reference soak, device front-end {how}", \
+        len(lists), 0
+    with counted.run():
+        if how == "windows":
+            for t0 in range(0, n, SOAK_WINDOW):
+                ys, cbs, crs = dec.decode_steps(lists[t0:t0 + SOAK_WINDOW])
+                if bool((on_first(torch, dec.last_status_steps) != 0).any()):
+                    fail(f"{tag}: a lane failed in the window from frame "
+                         f"{t0}")
+                for j in range(ys.shape[0]):
+                    hold_reference(torch, (ys[j], cbs[j], crs[j]), t0 + j,
+                                   SOAK_CHAINS, digests, tag)
+                hold_reference(torch, (dec.present_rgba(deblock=True),),
+                               t0 + ys.shape[0] - 1, SOAK_CHAINS, digests,
+                               tag, "rgba")
+                presents += 1
+            if ys.shape[0] != n % SOAK_WINDOW:
+                fail(f"{tag}: the last window held {ys.shape[0]} frames")
+        else:
+            for t, bufs in enumerate(lists):
+                planes = [on_first(torch, p) for p in dec.decode_step(bufs)]
+                if bool((on_first(torch, dec.last_status) != 0).any()):
+                    fail(f"{tag}: a lane failed at frame {t}")
+                hold_reference(torch, planes, t, SOAK_CHAINS, digests, tag)
+                if is_present_frame(t, n):
+                    rgba = on_first(torch, dec.present_rgba(deblock=True))
+                    hold_reference(torch, (rgba,), t, SOAK_CHAINS, digests,
+                                   tag, "rgba")
+                    presents += 1
+    return presents
+
+
+def soak_host(torch, lists, digests, counted):
+    """(a) the host front-end over the chains, as steps."""
+    from h263_tpu_torch import BatchedStreamDecoder
+
+    dec = BatchedStreamDecoder(S_MAIN, W, H, device=DEVICE)
+    tag, presents = "reference soak, host front-end", 0
+    with counted.run():
+        for t, bufs in enumerate(lists):
+            hold_reference(torch, dec.decode_step(bufs), t, SOAK_CHAINS,
+                           digests, tag)
+            if is_present_frame(t, len(lists)):
+                hold_reference(torch, (dec.present_rgba(deblock=True),), t,
+                               SOAK_CHAINS, digests, tag, "rgba")
+                presents += 1
+    return presents
+
+
+def soak_pool(torch, lists, cap, digests, counted):
+    """(a) StreamPool(frontend="device") with S_MAIN CIF streams on the
+    chains; each stream's planes and RGBA through its public views."""
+    from h263_tpu_torch import StreamPool
+
+    pool = StreamPool(frontend="device", device=DEVICE, max_frame_bytes=cap)
+    for i in range(S_MAIN):
+        pool.add_stream(i, W, H)
+    tag, presents = "reference soak, StreamPool(frontend=\"device\")", 0
+    with counted.run():
+        for t, bufs in enumerate(lists):
+            res = pool.decode_step(dict(enumerate(bufs)))
+            views = [res.device_planes(i) for i in range(S_MAIN)]
+            hold_reference(torch, [torch.stack([v[k] for v in views])
+                                   for k in range(3)], t, SOAK_CHAINS,
+                           digests, tag)
+            if is_present_frame(t, len(lists)):
+                rgba = pool.present_rgba(deblock=True)
+                hold_reference(torch, (torch.stack([rgba[i] for i in
+                                                    range(S_MAIN)]),),
+                               t, SOAK_CHAINS, digests, tag, "rgba")
+                presents += 1
+    return presents
+
+
+def reference_soak(torch, digests, counted):
+    """(a): the two 60-frame CIF chains through every batched path."""
+    t0 = time.perf_counter()
+    lists, cap = soak_lists()
+    log(f"reference soak: {len(lists)} frames of {SOAK_CHAINS} on "
+        f"{S_MAIN} lanes, largest frame {cap} B; made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for how in ("steps", "windows", "host", "pool", "mesh"):
+        t1 = time.perf_counter()
+        if how == "host":
+            presents = soak_host(torch, lists, digests, counted)
+        elif how == "pool":
+            presents = soak_pool(torch, lists, cap, digests, counted)
+        else:
+            presents = soak_device(torch, lists, cap, digests, counted, how)
+        log(f"reference soak, {how}: every lane of the {len(lists)} frames "
+            f"equal to its chain's first lane and the reference digests, "
+            f"{presents} presents' RGBA too; "
+            f"{time.perf_counter() - t1:.1f} s")
+
+
+def reference_fixtures(torch, root, digests, counted):
+    """(b): every frame of every ffmpeg fixture through H263Decoder."""
+    from h263_tpu_torch import DecoderOption, H263Decoder
+    from h263_tpu_torch.testing import corpora as C
+
+    fix, n = os.path.join(root, "tests", "fixtures"), 0
+    for name in C.FIXTURE_DIMS:
+        ref = digests[f"ff_{name}"]
+        frames = C.fixture_frames(C.fixture_path(fix, name))
+        if len(frames) != len(ref["planes"]):
+            fail(f"fixture {name}: {len(frames)} frames, the digests "
+                 f"{len(ref['planes'])}")
+        dec = H263Decoder(DecoderOption.SORENSON_SPARK_BITSTREAM,
+                          device=DEVICE)
+        with counted.run():
+            for t, buf in enumerate(frames):
+                pic = dec.decode_next_picture(buf)
+                if C.planes_digest(*pic.as_yuv()) != ref["planes"][t]:
+                    fail(f"single decoder: ff_{name} frame {t} differs from "
+                         f"the reference digest")
+            if C.rgba_digest(dec.last_picture_rgba(deblock=True)) != \
+                    ref["rgba"][-1]:
+                fail(f"single decoder: ff_{name}'s last RGBA differs from "
+                     f"the reference digest")
+        n += len(frames)
+    log(f"reference fixtures: every frame of the {len(C.FIXTURE_DIMS)} "
+        f"ffmpeg fixtures ({n} frames, QCIF to 1408x1152) through "
+        f"H263Decoder equal to the reference digests, and each last "
+        f"RGBA")
+
+
+
+class LaunchCapture:
+    """While installed, keeps the inputs of the last call of the device
+    front-end's automaton and reconstruct wrappers and of the batched
+    present (each passed on), for timing their kernels alone."""
+
+    def __init__(self):
+        from h263_tpu_torch.decoder import reconstruct as recon_mod
+        from h263_tpu_torch.parser import automaton_cuda
+
+        self.hooks = [(automaton_cuda, "parse_assemble_cuda"),
+                      (automaton_cuda, "reconstruct_from_dense"),
+                      (recon_mod, "present_rgba_batched")]
+        self.fns = [getattr(m, name) for m, name in self.hooks]
+        self.args = {}
+
+    def _keep(self, name, fn):
+        def call(*args, **kw):
+            self.args[name] = (args, kw)
+            return fn(*args, **kw)
+        return call
+
+    def __enter__(self):
+        for (mod, name), fn in zip(self.hooks, self.fns):
+            setattr(mod, name, self._keep(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.hooks, self.fns):
+            setattr(mod, name, fn)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_big_launches(torch, cap, name, S, smi):
+    """One launch of the automaton, the reconstruct and the present kernel
+    on the last step's own inputs, CUDA events over BIG_REPS launches,
+    each against its bytes bound (inputs read once, outputs written
+    once)."""
+    from h263_tpu_torch.ops import present_cuda, reconstruct_cuda
+    from h263_tpu_torch.parser import automaton_cuda
+
+    (payload, meta), kw = cap.args["parse_assemble_cuda"]
+    dense, mvs, inter, status = automaton_cuda.parse_assemble_cuda(
+        payload, meta, **kw)
+    ms = cuda_ms(lambda: automaton_cuda.parse_assemble_cuda(payload, meta,
+                                                            **kw), BIG_REPS)
+    auto_b = nbytes(payload, meta, dense, mvs, inter, status) + 4 * S
+    rec_args, rec_kw = cap.args["reconstruct_from_dense"]
+    rec_ms = cuda_ms(lambda: reconstruct_cuda.reconstruct_from_dense_cuda(
+        *rec_args, **rec_kw), BIG_REPS)
+    rec_b = nbytes(*rec_args) + nbytes(*rec_args[3:])
+    pres_args, pres_kw = cap.args["present_rgba_batched"]
+    pres_ms = cuda_ms(lambda: present_cuda.present_rgba_cuda(
+        *pres_args, **pres_kw), BIG_REPS)
+    y = pres_args[0]
+    pres_b = nbytes(*pres_args) + 4 * y.numel()
+    row = []
+    for kname, t, b in (("automaton", ms, auto_b),
+                        ("reconstruct", rec_ms, rec_b),
+                        ("present", pres_ms, pres_b)):
+        bound = bytes_bound_ms(b)
+        row.append(f"{kname} {t:.4f} ms against {bound:.4f} ms "
+                   f"({b / 1e6:.1f} MB, {t / bound:.2f}x)")
+    log(f"reference batched {name} at S={S}, one launch each on the last "
+        f"step's inputs (the automaton through its wrapper, output fills "
+        f"included; the bound: the bytes over {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s): " + "; ".join(row) + f" ({smi})")
+
+
+def reference_big(torch, root, digests, counted, smi):
+    """(c): p720, longgop and cif16, every lane the same fixture, through
+    both batched front-ends at S_BIG lanes: every frame equal to the
+    digests, the last RGBA too, peak memory, and the kernels timed."""
+    from h263_tpu_torch import BatchedStreamDecoder, DeviceFrontendDecoder
+    from h263_tpu_torch.testing import corpora as C
+
+    fix = os.path.join(root, "tests", "fixtures")
+    for name in BIG_FIXTURES:
+        w, h = C.FIXTURE_DIMS[name]
+        frames = C.fixture_frames(C.fixture_path(fix, name))
+        cap_bytes = max(len(f) for f in frames)
+        chains = [f"ff_{name}"]
+        for kind in ("device", "host"):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            if kind == "device":
+                dec = DeviceFrontendDecoder(S_BIG, w, h, device=DEVICE,
+                                            max_frame_bytes=cap_bytes)
+            else:
+                dec = BatchedStreamDecoder(S_BIG, w, h, device=DEVICE)
+            tag = f"reference batched {name} ({w}x{h}), {kind} front-end"
+            with counted.run(), LaunchCapture() as cap:
+                for t, buf in enumerate(frames):
+                    planes = dec.decode_step([buf] * S_BIG)
+                    if kind == "device" and dec.fetch_status().any():
+                        fail(f"{tag}: a lane failed at frame {t}")
+                    hold_reference(torch, planes, t, chains, digests, tag)
+                rgba = dec.present_rgba(deblock=True)
+                hold_reference(torch, (rgba,), len(frames) - 1, chains,
+                               digests, tag, "rgba")
+            torch.cuda.synchronize()
+            log(f"{tag}: {len(frames)} frames x {S_BIG} lanes (frames up to "
+                f"{cap_bytes} B) equal to the reference digests, every "
+                f"lane and the last RGBA; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"{time.perf_counter() - t0:.1f} s")
+            del planes, rgba
+            if kind == "device":
+                time_big_launches(torch, cap, name, S_BIG, smi)
+            del dec, cap
+
+
+def phase_reference(torch, root, digests):
+    """Phase 16: the port held to the reference on the card, through the
+    digests: (a) the 60-frame CIF chains on every batched path at S_MAIN,
+    (b) every frame of the 13 ffmpeg fixtures through H263Decoder, (c)
+    batched above CIF at S_BIG lanes.  Returns the launches of its counted
+    runs."""
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    counted = Counted(torch)
+    reference_soak(torch, digests, counted)
+    reference_fixtures(torch, root, digests, counted)
+    reference_big(torch, root, digests, counted, smi)
+    log(f"reference: launches of phase 16's counted runs {counted.total}")
+    if min(counted.total.get(k, 0) for k in (
+            "entropy_automaton", "reconstruct", "present_rgba",
+            "d24_unpack")) < 1:
+        fail("a kernel of the reference phase was not launched")
+    log(f"phase 16 done in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return counted.total
+
+
 def load_streams(root):
     """(streams: name -> (width, height, frames), the CIF fixture's golden
     luma, the reference digests) of every phase."""
@@ -4027,7 +4366,7 @@ def main() -> int:
             launches[k] += n
     single, resize_err = phase_single(torch, root, streams, digests, rng)
     for more in (single, phase_mesh(torch, streams, digests, rng),
-                 phase_fuzz(torch)):
+                 phase_fuzz(torch), phase_reference(torch, root, digests)):
         for k, n in more.items():
             launches[k] += n
     for r in records:

@@ -113,6 +113,14 @@ def build() -> Path:
     return so
 
 
+def ensure_built() -> bool:
+    """The JAX package's name for building and loading the library: True,
+    or raises as `lib()` does (the port has no Python fallback, so there
+    is no `NATIVE_AVAILABLE`)."""
+    lib()
+    return True
+
+
 def lib() -> ctypes.CDLL:
     """The loaded native library (built on first call)."""
     global _lib
@@ -166,3 +174,17 @@ class DevicePrepBatch:
             self._h, stage.ctypes.data, stage.nbytes, meta.ctypes.data,
             self.hdr.ctypes.data, self.rc.ctypes.data)
         return int(failed)
+
+
+def __getattr__(name):
+    # `bindings` imports `lib` from this package, so it is imported at
+    # first use rather than here; this module also loads on its own, by
+    # path, where a relative import has no package.
+    if name == "parse_frame_native":
+        from .bindings import parse_frame_native
+        return parse_frame_native
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["DevicePrepBatch", "build", "ensure_built", "lib",
+           "parse_frame_native"]

@@ -1,5 +1,6 @@
 """The synthetic streams `chip_smoke.py` decodes, and the digests that hold
-its output against the reference decoder.
+its output, on them and on the ffmpeg fixtures, against the reference
+decoder.
 
 The streams are made from seeds with the port's own encoder, so the same
 bytes come out on any machine.  `reference_sequences` names every stream
@@ -46,6 +47,16 @@ STD_QCIF_SEED = 350  # sq0
 UMV_SEED = 400      # u0
 D3_SEED = 500       # d0
 RESIZE_SEED = 700   # resize_sequence
+SOAK_SEED = 42      # soak48
+SOAK_CIF_SEEDS = {"soak_cif_a": 801, "soak_cif_b": 802}
+SOAK_FRAMES = 60
+#: The ffmpeg fixtures tests/fixtures/ffmpeg_flv1_<name>.flv, each with
+#: digests of every frame as ff_<name>: name -> (width, height).
+FIXTURE_DIMS = {
+    "qcif": QCIF, "cif": CIF, "longgop": QCIF, "motion": CIF,
+    "odd": (120, 90), "quant": QCIF, "scenecut": QCIF, "p720": (1280, 720),
+    "qcoarse": QCIF, "qfine": QCIF, "starved": CIF, "cutstorm": QCIF,
+    "cif16": (1408, 1152)}
 
 
 def build_corpus(width: int, height: int, n_frames: int, seed: int,
@@ -271,6 +282,63 @@ def rich_gop(seed, width=48, height=32, n=5, version=1):
     return frames
 
 
+def soak_gop(seed: int, width: int = 48, height: int = 48,
+             n_frames: int = SOAK_FRAMES):
+    """An I-frame, then P-frames of dense, varied content: every sparsity
+    class, half-pel MVs in every combination, escapes, DQUANT churn, 4V
+    and intra macroblocks in P-frames, uncoded gaps (a copy of the JAX
+    package's 60-frame drift soak stream, tests/test_soak.py::_rich_gop)."""
+    rng = np.random.default_rng(seed)
+    nmb = (width // 16) * (height // 16)
+
+    def blocks(n_heavy):
+        out = []
+        for _ in range(6):
+            if rng.random() < 0.35:
+                out.append([])
+                continue
+            evs, total = [], 0
+            for _ in range(int(rng.integers(1, n_heavy))):
+                run = int(rng.integers(0, 10))
+                if total + run + 1 > 64:
+                    break
+                lvl = int(rng.integers(1, 110)) * (1 if rng.random() < 0.5
+                                                   else -1)
+                evs.append((run, lvl))
+                total += run + 1
+            out.append(evs)
+        return out
+
+    frames = [encode_sorenson_picture(
+        width, height, PictureTypeCode.I_FRAME,
+        [MBSpec(kind="intra",
+                intradc=[int(rng.integers(1, 128)) * 8 for _ in range(6)],
+                blocks=blocks(6)) for _ in range(nmb)],
+        quantizer=int(rng.integers(2, 20)), temporal_reference=0, version=1)]
+    for tr in range(1, n_frames):
+        mbs = []
+        for _ in range(nmb):
+            roll = rng.random()
+            if roll < 0.15:
+                mbs.append(MBSpec(kind="uncoded"))
+            elif roll < 0.25:
+                mbs.append(MBSpec(
+                    kind="intra",
+                    intradc=[int(rng.integers(1, 128)) * 8 for _ in range(6)],
+                    blocks=blocks(4), dquant=int(rng.choice([0, -1, 1]))))
+            else:
+                nmv = 4 if rng.random() < 0.25 else 1
+                mvd = [(int(rng.integers(-10, 11)), int(rng.integers(-10, 11)))
+                       for _ in range(nmv)]
+                mbs.append(MBSpec(kind="inter", mvd=mvd, blocks=blocks(4),
+                                  dquant=int(rng.choice([0, 0, -2, 2]))))
+        frames.append(encode_sorenson_picture(
+            width, height, PictureTypeCode.P_FRAME, mbs,
+            quantizer=int(rng.integers(2, 20)), temporal_reference=tr & 0xFF,
+            version=1))
+    return frames
+
+
 def fma_sequence(width: int, height: int, n_frames: int):
     """I-frame of DC 1024, then a P-frame whose first block holds
     {735, -555, 215} (pixel (0, 2) = 128 + 28 = 156 with strict f32
@@ -363,8 +431,10 @@ def std_qcif_corpus():
 
 def is_standard(name: str) -> bool:
     """Whether the digest sequence `name` is standard H.263 (decoded with
-    `DecoderOption.NONE`) rather than Sorenson."""
-    return name[0] in "sud"
+    `DecoderOption.NONE`) rather than Sorenson: `s{k}`, `sq0`, `u0`,
+    `d0`."""
+    return name in ("sq0", "u0", "d0") or (name[0] == "s"
+                                           and name[1:].isdigit())
 
 
 def fixture_frames(flv_path) -> list:
@@ -372,9 +442,18 @@ def fixture_frames(flv_path) -> list:
     return [t.payload for t in iter_flv_video_tags(Path(flv_path).read_bytes())]
 
 
-def reference_sequences(cif_fixture_flv) -> dict:
-    """{name: (width, height, frames)} of every stream with digests."""
-    seqs = {"fixture": (*CIF, fixture_frames(cif_fixture_flv)[:GOP]),
+def fixture_path(fixture_dir, name: str) -> Path:
+    return Path(fixture_dir) / f"ffmpeg_flv1_{name}.flv"
+
+
+def reference_sequences(fixture_dir) -> dict:
+    """{name: (width, height, frames)} of every stream with digests: the
+    8-frame sequences (the CIF fixture's first 8 frames, FMA, the
+    corpora), the 60-frame soak chains (`soak48` at 48x48, the JAX
+    package's drift soak, and `soak_cif_a`, `soak_cif_b` at CIF) and every
+    frame of each ffmpeg fixture in `fixture_dir` as `ff_<name>`."""
+    seqs = {"fixture": (*CIF, fixture_frames(
+                fixture_path(fixture_dir, "cif"))[:GOP]),
             "fma": (*CIF, fma_sequence(*CIF, GOP))}
     for k in range(N_CIF_CORPORA):
         seqs[f"c{k}"] = (*CIF, cif_corpus(k))
@@ -385,6 +464,12 @@ def reference_sequences(cif_fixture_flv) -> dict:
     seqs["sq0"] = (*QCIF, std_qcif_corpus())
     seqs["u0"] = (*CIF, umv_corpus(*CIF, GOP))
     seqs["d0"] = (*QCIF, d3_corpus(*QCIF, GOP))
+    seqs["soak48"] = (48, 48, soak_gop(SOAK_SEED))
+    for name, seed in SOAK_CIF_SEEDS.items():
+        seqs[name] = (*CIF, soak_gop(seed, *CIF))
+    for name, (w, h) in FIXTURE_DIMS.items():
+        seqs[f"ff_{name}"] = (w, h, fixture_frames(
+            fixture_path(fixture_dir, name)))
     return seqs
 
 
@@ -407,9 +492,9 @@ def rgba_digest(rgba) -> str:
 
 
 def load_digests() -> dict:
-    """{name: {"width", "height", "planes": [hex] * GOP, "rgba": [hex] *
-    GOP}}: frame t's planes, and its RGBA deblocked at the strength of its
-    own quantizer (`present_rgba(deblock=True)` after frame t)."""
+    """{name: {"width", "height", "planes": [hex] * frames, "rgba": [hex] *
+    frames}}: frame t's planes, and its RGBA deblocked at the strength of
+    its own quantizer (`present_rgba(deblock=True)` after frame t)."""
     with open(DIGESTS) as fh:
         return json.load(fh)["sequences"]
 

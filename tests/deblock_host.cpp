@@ -24,6 +24,7 @@ extern "C" int h263_deblock_host(const uint8_t* planes, uint8_t* out, int S,
                                  const uint8_t* apply, int nthreads) {
   alignas(16) static uint8_t buf[kRows * kPitch];
   if (nthreads <= 0 || nthreads % h263::kWarp != 0) return 2;
+  if (S <= 0 || h <= 0 || w <= 0) return 0;   // as the launcher: no launch
   const int n_row_tiles = h263::tile_count(h, kRowStep, kShift);
   const int n_col_tiles = h263::tile_count(w, kColStep, kShift);
   for (int s = 0; s < S; ++s) {

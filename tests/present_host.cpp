@@ -33,6 +33,7 @@ extern "C" int h263_present_host(const uint8_t* y, const uint8_t* cb,
   alignas(16) static uint8_t buf_cb[kRowsC * kPitchC];
   alignas(16) static uint8_t buf_cr[kRowsC * kPitchC];
   if (nthreads <= 0 || nthreads % h263::kWarp != 0) return 2;
+  if (S <= 0 || h <= 0 || w <= 0) return 0;   // as the launcher: no launch
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
   const int n_row_tiles =
       h263::tile_count(h, h263::kLumaRowStep, h263::kLumaShift);

@@ -960,3 +960,110 @@ def test_fuzz_campaign_on_the_second_card(two_cards, flavor):
     one = _fuzz_campaign(flavor, "cuda:1")
     zero = _fuzz_campaign(flavor, "cuda:0")
     assert not one[2] and one == zero
+
+
+# -- the reference implementation's own vectors (tests/ref_vectors/) on the
+# card: the images and quartets tests/test_torch_reference_vectors.py holds
+# the plain versions and the kernels' g++ host walks to.
+
+def _ref_vectors(name):
+    import json
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "ref_vectors" / name
+    return json.loads(path.read_text())
+
+
+def _yuv_image(idx):
+    img = _ref_vectors("yuv.json")["images"][idx]
+    w = img["y_width"]
+    h = 0 if w == 0 else len(img["y"]) // w
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    return ([torch.as_tensor(np.asarray(img[k], np.uint8).reshape(1, *hw))
+             for k, hw in (("y", (h, w)), ("cb", (ch, cw)),
+                           ("cr", (ch, cw)))],
+            np.asarray(img["rgba"], np.uint8).reshape(1, h, w, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("idx", range(10))
+def test_rgba_kernels_on_the_reference_images(cuda, idx):
+    """bt601.rs's golden images through the YUV kernel and the present
+    kernel (no deblock), exact."""
+    planes, want = _yuv_image(idx)
+    planes = [p.to(cuda) for p in planes]
+    got = yuv_cuda.yuv420_to_rgba_cuda(*planes)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    got = present_cuda.present_rgba_cuda(
+        *planes, torch.zeros(1, dtype=torch.int32, device=cuda),
+        torch.zeros(1, dtype=torch.bool, device=cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_rgba_kernels_on_the_reference_scalar_anchors(cuda):
+    """bt601.rs's scalar anchors, one 1x1 picture a lane."""
+    cases = _ref_vectors("yuv.json")["scalar"]
+    yuv = np.asarray([c["yuv"] for c in cases], np.uint8)
+    planes = [torch.as_tensor(np.ascontiguousarray(yuv[:, k, None, None]))
+              .to(cuda) for k in range(3)]
+    want = np.asarray([c["rgb"] for c in cases], np.uint8)
+    n = len(cases)
+    for got in (yuv_cuda.yuv420_to_rgba_cuda(*planes),
+                present_cuda.present_rgba_cuda(
+                    *planes, torch.zeros(n, dtype=torch.int32, device=cuda),
+                    torch.zeros(n, dtype=torch.bool, device=cuda))):
+        got = got.cpu().numpy()
+        np.testing.assert_array_equal(got[:, 0, 0, :3], want)
+        assert (got[..., 3] == 255).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strength", [4, 8, 12])
+def test_deblock_kernels_on_the_reference_image(cuda, strength):
+    """deblock.rs's 11x17 golden image at its strength through the deblock
+    kernel; and as the luma of a picture with flat chroma (which the
+    filter leaves alone) through the present kernel, whose RGBA must be the
+    plain conversion of the golden deblocked luma."""
+    img = _ref_vectors("deblock.json")["image"]
+    w = img["width"]
+    data = np.asarray(img["data"], np.uint8).reshape(1, -1, w)
+    want = np.asarray(img["expected"][str(strength)],
+                      np.uint8).reshape(1, -1, w)
+    st = torch.tensor([strength], dtype=torch.int32, device=cuda)
+    on = torch.ones(1, dtype=torch.bool, device=cuda)
+    y = torch.as_tensor(data).to(cuda)
+    got = deblock_cuda.deblock_batched_cuda(y, st, on)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    h = data.shape[1]
+    c = torch.full((1, (h + 1) // 2, (w + 1) // 2), 140, dtype=torch.uint8)
+    rgba = present_cuda.present_rgba_cuda(y, c.to(cuda), c.to(cuda), st, on)
+    np.testing.assert_array_equal(
+        rgba.cpu().numpy(), yuv420_to_rgba(torch.as_tensor(want), c, c))
+
+
+@pytest.mark.gpu
+def test_deblock_kernel_on_the_reference_quartets(cuda):
+    """deblock.rs's quartet table, each quartet the rows 6-9 of a 10x1
+    plane (its one edge in the reference's truncating zone), one lane a
+    quartet at its own strength; reversed and inverted too."""
+    quartets = _ref_vectors("deblock.json")["quartets"]
+    st = torch.tensor([q["strength"] for q in quartets], dtype=torch.int32,
+                      device=cuda)
+    on = torch.ones(len(quartets), dtype=torch.bool, device=cuda)
+    want = np.asarray([q["output"] for q in quartets], np.uint8)
+    for flip in (False, True):
+        for invert in (False, True):
+            q = np.asarray([c["input"] for c in quartets], np.uint8)
+            q = q[:, ::-1] if flip else q
+            q = 255 - q if invert else q
+            planes = np.full((len(quartets), 10, 1), 77, np.uint8)
+            planes[:, 6:10, 0] = q
+            got = deblock_cuda.deblock_batched_cuda(
+                torch.as_tensor(planes).to(cuda), st, on).cpu().numpy()
+            assert (got[:, :6] == 77).all()
+            got = got[:, 6:10, 0]
+            got = 255 - got if invert else got
+            got = got[:, ::-1] if flip else got
+            np.testing.assert_array_equal(
+                got, want, err_msg=f"reversed {flip}, inverted {invert}")

@@ -256,6 +256,23 @@ def test_rich_gop_bytes_equal(seed, kw):
     assert rich_gop(seed, **kw) == j_rich_gop(seed, **kw)
 
 
+@pytest.mark.parametrize("seed,dims", [
+    (42, (48, 48)), (7, (48, 48)), (801, (352, 288)), (802, (352, 288)),
+])
+def test_soak_gop_bytes_equal(seed, dims):
+    """The port's copy of the drift soak stream gives the bytes of the JAX
+    package's tests/test_soak.py::_rich_gop, at 48x48 (soak48 and the
+    presentation soak) and at the CIF seeds of soak_cif_a and soak_cif_b."""
+    from test_soak import _rich_gop
+
+    from h263_tpu_torch.testing import corpora
+
+    if dims == corpora.CIF:
+        assert seed in corpora.SOAK_CIF_SEEDS.values()
+    n = corpora.SOAK_FRAMES
+    assert corpora.soak_gop(seed, *dims, n) == _rich_gop(seed, *dims, n)
+
+
 # -- the FLV demuxer and the counters ----------------------------------------
 
 @pytest.mark.parametrize("name", ["ffmpeg_flv1_cif.flv",
