@@ -188,13 +188,38 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      reconstruct and present launch of the device front-end timed at each
      size against its bytes bound.
 
+  17. the port as a user installs it (`phase_installed`): a wheel built by
+     `pip wheel` from a copy of the checkout, installed with `pip install
+     --no-deps --no-index --prefix` into a temporary directory, then run in
+     subprocesses whose working directory is a temporary one, whose
+     PYTHONPATH is the install's site-packages (and a directory holding
+     only the start-up hook `INSTALL_HOOK`, which fails the process if the
+     port loads from elsewhere or `jax` or `h263_tpu` is imported, and
+     reports the launch counts at exit) and whose $XDG_CACHE_HOME is new:
+     (a) a cold start with the package directory read-only (chmod -R a-w,
+     or as root the port's writability probe refused), g++, nvcc and the
+     first two steps of the device pool timed, both libraries in the cache
+     and nothing written under the prefix; (b) on that cache, phase 8's
+     streams (1024 CIF + 64 QCIF, without the churn) for a GOP through
+     StreamPool() and StreamPool(frontend="host"), present_rgba every
+     step, sampled streams equal to the installed digests; (e) four
+     workers at once on a cold cache, 256 CIF streams each, one g++ and
+     one nvcc build among them, equal outputs; (f) both libraries
+     prebuilt into the writable package directory (`native.lib()`,
+     `kernels.lib()`), then (b)'s device pool read-only on an empty cache
+     with g++ and nvcc replaced by stand-ins that fail; then together, on
+     the prebuilt libraries: (c) the console script `h263-tpu-torch decode`
+     of the CIF fixture on the card, every frame equal to `ff_cif`, and
+     `h263-tpu-torch selftest`, and (d) the three examples.
+
 The kernels line's launch counts are those of phases 8-12, of phase 13's
 (a)-(c) decoder runs (each run with the counts set to 0 just before it),
 of phase 14's mesh decoders' runs (each with the counts set to 0
 just before it and read just after it, every card synchronised at both
 ends; the unsharded references left out), of phase 15's campaigns
-and its CIF automaton and d24 launches, and of phase 16's decoder runs
-(counted the same way; its timed launches left out).
+and its CIF automaton and d24 launches, of phase 16's decoder runs
+(counted the same way; its timed launches left out), and of phase 17's
+subprocesses (each counted from its start to its exit).
 
     python3 chip_smoke.py --split-ab DIR...
 
@@ -215,8 +240,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
+import stat
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -4251,6 +4279,548 @@ def phase_reference(torch, root, digests):
     return counted.total
 
 
+# -- phase 17: the installed copy ---------------------------------------------
+
+S_WORKER = 256            # CIF streams of each of (e)'s workers
+N_WORKERS = 4
+INSTALL_LAUNCHES = ("entropy_automaton", "reconstruct", "present_rgba",
+                    "d24_unpack")
+
+# The `sitecustomize` of phase 17's subprocesses, in a directory of its own
+# behind the install's site-packages on PYTHONPATH, after a line that sets
+# MODULES (kernel name -> its wrapper's module).  At start-up: the port
+# must load from the install under $H263_SMOKE_PREFIX; with
+# $H263_SMOKE_REFUSE set (as root, whom chmod does not stop) the port's
+# writability probe refuses the package directory.  At exit: the kernels'
+# launch counts, the seconds of any g++ or nvcc build and the libraries
+# loaded go to $H263_SMOKE_OUT/<pid>.json, and the process fails (exit 92)
+# if `jax` or `h263_tpu` was imported or a module of the port came from
+# elsewhere.
+INSTALL_HOOK = r'''
+import atexit, importlib.machinery, importlib.util, json, os, sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize",
+    [p for p in sys.path if os.path.abspath(p or os.curdir) != _here])
+if _spec is not None:                 # the interpreter's own, shadowed here
+    _mod = importlib.util.module_from_spec(_spec)
+    _spec.loader.exec_module(_mod)
+
+import h263_tpu_torch
+from h263_tpu_torch import kernels, native
+
+_PKG = os.path.dirname(os.path.realpath(h263_tpu_torch.__file__))
+_PREFIX = os.path.realpath(os.environ["H263_SMOKE_PREFIX"]) + os.sep
+if not _PKG.startswith(_PREFIX):
+    sys.stderr.write(f"phase 17: h263_tpu_torch came from {_PKG}, not the "
+                     f"install under {_PREFIX}\n")
+    os._exit(91)
+
+
+def _under_pkg(path):
+    return (os.path.realpath(path) + os.sep).startswith(_PKG + os.sep)
+
+
+if os.environ.get("H263_SMOKE_REFUSE"):
+    _real = native._writable
+    native._writable = lambda d: False if _under_pkg(d) else _real(d)
+
+
+def _at_exit():
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "h263_tpu"))
+    elsewhere = sorted(k for k, m in list(sys.modules.items())
+                       if k.split(".")[0] == "h263_tpu_torch"
+                       and getattr(m, "__file__", None)
+                       and not _under_pkg(m.__file__))
+    launches = {name: getattr(sys.modules.get(mod), "launches", 0)
+                for name, mod in MODULES.items()}
+    report = {"argv": sys.argv, "launches": launches, "gxx_s": native.last_build_seconds,
+              "nvcc_s": kernels.last_build_seconds,
+              "native_lib": native._lib and native._lib._name,
+              "kernels_lib": kernels._lib and kernels._lib._name,
+              "jax": bad, "elsewhere": elsewhere}
+    with open(os.path.join(os.environ["H263_SMOKE_OUT"],
+                           f"{os.getpid()}.json"), "w") as fh:
+        json.dump(report, fh)
+    if bad or elsewhere:
+        sys.stdout.flush()
+        sys.stderr.write(f"phase 17: imported {bad}; port modules from "
+                         f"elsewhere {elsewhere}\n")
+        sys.stderr.flush()
+        os._exit(92)
+
+
+atexit.register(_at_exit)
+'''
+
+# What phase 17's subprocesses run (`python -c`), from the installed copy
+# alone: argv[1] is the mode, argv[2] the number of CIF streams.  Prints
+# one line "RESULT <json>".  The CIF fixture is read from the working
+# directory, the digests from the install.
+INSTALL_CHILD = r'''
+import hashlib, json, sys, time
+import torch
+from h263_tpu_torch import StreamPool, kernels, native
+from h263_tpu_torch.testing import corpora as C
+
+mode, S = sys.argv[1], int(sys.argv[2])
+S_QCIF = 0 if mode == "worker" else 64
+W, H = C.CIF
+out = {"mode": mode}
+
+
+def fail(msg):
+    raise SystemExit(f"phase 17 ({mode}): {msg}")
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+_, out["cuda_init_s"] = timed(lambda: torch.zeros(1, device="cuda"))
+_, out["native_lib_s"] = timed(native.lib)
+_, out["kernels_lib_s"] = timed(kernels.lib)
+if mode == "prebuild":
+    print("RESULT " + json.dumps(out))
+    raise SystemExit(0)
+digests = C.load_digests()
+streams = {f"c{k}": C.cif_corpus(k) for k in range(16)}
+streams.update({f"q{k}": C.qcif_corpus(k) for k in range(4)})
+streams["fixture"] = C.fixture_frames("ffmpeg_flv1_cif.flv")[:C.GOP]
+streams["fma"] = C.fma_sequence(W, H, C.GOP)
+# Phase 8's streams: the fixture, FMA, then the 16 corpora; QCIF corpora.
+seq_of = {f"cif{i}": ("fixture" if i < 4 else "fma" if i < 8
+                      else f"c{i % 16}") for i in range(S)}
+seq_of.update({f"qcif{j}": f"q{j % 4}" for j in range(S_QCIF)})
+sampled = ["cif0", "cif4", *(f"cif{i}" for i in range(8, 24)),
+           f"cif{S - 1}", *(f"qcif{j}" for j in range(min(S_QCIF, 4)))]
+
+
+def gop(frontend, n_steps, whole=False):
+    """A GOP of the streams through a pool, every frame the planes of the
+    sampled streams (with `whole`, of every stream) and the RGBA of the
+    sampled ones equal to the digests."""
+    pool = StreamPool(frontend=frontend)
+    for sid, name in seq_of.items():
+        pool.add_stream(sid, *((W, H) if sid.startswith("cif")
+                               else C.QCIF))
+    step_s, present_s, h = [], [], hashlib.sha256()
+    for t in range(n_steps):
+        res, s = timed(lambda: pool.decode_step(
+            {sid: streams[name][t] for sid, name in seq_of.items()}))
+        step_s.append(s)
+        rgba, s = timed(lambda: pool.present_rgba(deblock=True))
+        present_s.append(s)
+        for sid in (seq_of if whole else sampled):
+            name = seq_of[sid]
+            got = C.planes_digest(*res[sid])
+            h.update(got.encode())
+            if got != digests[name]["planes"][t]:
+                fail(f"{frontend} pool: {sid} ({name}) frame {t} differs "
+                     f"from the reference digest")
+        for sid in sampled:
+            name = seq_of[sid]
+            if (C.rgba_digest(rgba[sid].cpu().numpy())
+                    != digests[name]["rgba"][t]):
+                fail(f"{frontend} pool: {sid} ({name}) RGBA frame {t} "
+                     f"differs from the reference digest")
+    return {"step_ms": [round(s * 1e3, 3) for s in step_s],
+            "present_ms": [round(s * 1e3, 3) for s in present_s],
+            "frames_per_s": round(len(seq_of) * n_steps / sum(step_s), 1),
+            "digest": h.hexdigest()}
+
+
+if mode == "cold":
+    out["device"] = gop("device", 2)
+elif mode in ("main", "prebuilt"):
+    out["device"] = gop("device", C.GOP)
+    if mode == "main":
+        out["host"] = gop("host", C.GOP)
+elif mode == "worker":
+    out["device"] = gop("device", C.GOP, whole=True)
+else:
+    fail("unknown mode")
+out["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+print("RESULT " + json.dumps(out))
+'''
+
+# Stand-ins for g++ and nvcc in (f) and after it: any compile fails.
+NO_COMPILER = "#!/bin/sh\necho \"phase 17: a compiler ran: $0 $*\" >&2\nexit 97\n"
+
+
+def _tree_state(root) -> dict:
+    """relative path -> (size, mtime) of every file and directory under
+    `root`."""
+    state = {}
+    for dirpath, _, files in os.walk(root):
+        for p in [dirpath, *(os.path.join(dirpath, f) for f in files)]:
+            st = os.lstat(p)
+            state[os.path.relpath(p, root)] = (st.st_size, st.st_mtime_ns)
+    return state
+
+
+def _set_writable(path, writable: bool) -> None:
+    """chmod -R u+w or a-w."""
+    for dirpath, _, files in os.walk(path):
+        for p in [dirpath, *(os.path.join(dirpath, f) for f in files)]:
+            mode = os.lstat(p).st_mode
+            os.chmod(p, (mode | stat.S_IWUSR) if writable
+                     else mode & ~(stat.S_IWUSR | stat.S_IWGRP | stat.S_IWOTH))
+
+
+class Installed:
+    """The wheel of the checkout at `root`, installed under a temporary
+    prefix, and its subprocesses (see `phase_installed`)."""
+
+    def __init__(self, root, work):
+        self.work, self.root = work, root
+        src = os.path.join(work, "src")
+        os.makedirs(src)
+        for name in ("pyproject.toml", "README.md"):
+            shutil.copy(os.path.join(root, name), src)
+        for pkg in ("h263_tpu", "h263_tpu_torch"):
+            shutil.copytree(os.path.join(root, pkg), os.path.join(src, pkg),
+                            ignore=shutil.ignore_patterns(
+                                "build", "__pycache__", "*.egg-info"))
+        self.prefix = os.path.join(work, "prefix")
+        t0 = time.perf_counter()
+        self.pip("wheel", src, "--no-deps", "--no-build-isolation",
+                 "--no-index", "-w", os.path.join(work, "dist"))
+        self.wheel_s = time.perf_counter() - t0
+        (wheel,) = os.listdir(os.path.join(work, "dist"))
+        t0 = time.perf_counter()
+        self.pip("install", "--no-deps", "--no-index", "--prefix",
+                 self.prefix, os.path.join(work, "dist", wheel))
+        self.install_s = time.perf_counter() - t0
+        found = [d for d, _, f in os.walk(self.prefix)
+                 if os.path.basename(d) == "h263_tpu_torch"
+                 and "__init__.py" in f]
+        if len(found) != 1:
+            fail(f"the install holds h263_tpu_torch at {found}")
+        self.pkg = found[0]
+        self.site = os.path.dirname(self.pkg)
+        self.script = os.path.join(self.prefix, "bin", "h263-tpu-torch")
+        if not os.access(self.script, os.X_OK):
+            fail(f"no console script at {self.script}")
+        self.hook = os.path.join(work, "hook")
+        os.makedirs(self.hook)
+        names = json.dumps({k: m.__name__
+                            for k, m in kernel_modules().items()})
+        with open(os.path.join(self.hook, "sitecustomize.py"), "w") as fh:
+            fh.write(f"MODULES = {names}\n{INSTALL_HOOK}")
+        self.no_compiler = os.path.join(work, "no_compiler")
+        os.makedirs(self.no_compiler)
+        for name in ("g++", "nvcc"):
+            p = os.path.join(self.no_compiler, name)
+            with open(p, "w") as fh:
+                fh.write(NO_COMPILER)
+            os.chmod(p, 0o755)
+        os.makedirs(os.path.join(self.no_compiler, "bin"))
+        os.symlink(os.path.join(self.no_compiler, "nvcc"),
+                   os.path.join(self.no_compiler, "bin", "nvcc"))
+        self.reports = os.path.join(work, "reports")
+        os.makedirs(self.reports)
+        self.root_user = os.geteuid() == 0
+        self.read_only_how = ("the writability probe refused (root: chmod "
+                              "stops no write)" if self.root_user
+                              else "chmod -R a-w")
+        self.n = 0
+        self.done = {}          # tag -> the report of a finished subprocess
+        self.refuse = False     # the package directory is read-only
+        self.pristine = None    # what no run may change under the prefix
+
+    def pip(self, *args):
+        proc = subprocess.run([sys.executable, "-m", "pip", *args, "-q"],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"pip {args[0]} failed: {proc.stdout[-3000:]}"
+                 f"{proc.stderr[-3000:]}")
+
+    def read_only(self, on: bool) -> None:
+        """Make the package directory unwritable (or writable again): by
+        chmod unless root, whose subprocesses' probe refuses it instead."""
+        self.refuse = on
+        if not self.root_user:
+            _set_writable(self.pkg, not on)
+
+    def start(self, tag, argv, cache, compilers=True):
+        """Start one subprocess of the installed copy in a fresh working
+        directory holding the CIF fixture, with `cache` as
+        $XDG_CACHE_HOME; without `compilers`, g++ and nvcc fail."""
+        self.n += 1
+        cwd = os.path.join(self.work, f"run{self.n}_{tag}")
+        os.makedirs(cwd)
+        shutil.copy(os.path.join(self.root, "tests", "fixtures",
+                                 "ffmpeg_flv1_cif.flv"), cwd)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "XDG_CACHE_HOME", "PYTHONHOME",
+                            "H263_SMOKE_REFUSE")}
+        env.update(PYTHONPATH=f"{self.site}{os.pathsep}{self.hook}",
+                   XDG_CACHE_HOME=cache, PYTHONDONTWRITEBYTECODE="1",
+                   H263_SMOKE_PREFIX=self.prefix, H263_SMOKE_OUT=self.reports)
+        if self.refuse and self.root_user:
+            env["H263_SMOKE_REFUSE"] = "1"
+        if not compilers:
+            env["PATH"] = f"{self.no_compiler}{os.pathsep}{env['PATH']}"
+            env["CUDA_HOME"] = self.no_compiler
+        proc = subprocess.Popen(argv, cwd=cwd, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        return tag, cwd, proc
+
+    def wait(self, started, timeout=600) -> dict:
+        """tag -> (stdout, the subprocess's report, its working directory)
+        of each started one; fails with its stderr if one exits nonzero,
+        after ending the others."""
+        try:
+            return self._wait(started, timeout)
+        finally:
+            for _, _, proc in started:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+    def _wait(self, started, timeout) -> dict:
+        outs = {}
+        for tag, cwd, proc in started:
+            try:
+                out, err = proc.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+                fail(f"installed copy, {tag}: timed out\n{err[-4000:]}")
+            if proc.returncode != 0:
+                fail(f"installed copy, {tag}: exit {proc.returncode}\n"
+                     f"{out[-2000:]}\n{err[-6000:]}")
+            path = os.path.join(self.reports, f"{proc.pid}.json")
+            if not os.path.exists(path):
+                fail(f"installed copy, {tag}: no report at exit")
+            with open(path) as fh:
+                self.done[tag] = json.load(fh)
+            outs[tag] = (out, self.done[tag], cwd)
+        return outs
+
+    def child(self, tag, mode, s, cache, compilers=True):
+        """(its RESULT, its report) of one `INSTALL_CHILD` run in `mode`
+        over `s` CIF streams."""
+        (out, report, _), = self.wait([self.start(
+            tag, [sys.executable, "-c", INSTALL_CHILD, mode, str(s)], cache,
+            compilers)]).values()
+        return self.result(tag, out), report
+
+    @staticmethod
+    def result(tag, out) -> dict:
+        lines = [x for x in out.splitlines() if x.startswith("RESULT ")]
+        if len(lines) != 1:
+            fail(f"installed copy, {tag}: no RESULT line\n{out[-2000:]}")
+        return json.loads(lines[0][len("RESULT "):])
+
+
+def _cache_holds_one_build(cache, tag):
+    for kind, stem in (("native", "libh263entropy_"),
+                       ("kernels", "libh263cuda_")):
+        d = os.path.join(cache, "h263_tpu_torch", kind)
+        names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        libs = [n for n in names if n.startswith(stem) and n.endswith(".so")]
+        if len(libs) != 1 or sorted(set(names) - set(libs)) != [".lock"]:
+            fail(f"installed copy, {tag}: {d} holds {names}, not one "
+                 f"{stem}*.so and its .lock")
+
+
+def _lib_dir(report, kind) -> str:
+    return os.path.dirname(report[f"{kind}_lib"])
+
+
+def installed_cold(inst, smi):
+    """(a): a cold start with the package directory read-only; both
+    libraries land in the new cache and nothing under the prefix
+    changes."""
+    cache = os.path.join(inst.work, "cache_a")
+    res, rep = inst.child("a_cold", "cold", S_MAIN, cache)
+    if rep["gxx_s"] is None or rep["nvcc_s"] is None:
+        fail("installed copy (a): a library was not built on a cold cache")
+    for kind in ("native", "kernels"):
+        if _lib_dir(rep, kind) != os.path.join(cache, "h263_tpu_torch", kind):
+            fail(f"installed copy (a): the {kind} library loaded from "
+                 f"{rep[kind + '_lib']}, not the cache")
+    _cache_holds_one_build(cache, "a")
+    if _tree_state(inst.prefix) != inst.pristine:
+        fail("installed copy (a): something was written under the prefix")
+    log("installed copy (a) cold start, read-only: " + json.dumps({
+        "cuda_init_s": res["cuda_init_s"], "gxx_s": rep["gxx_s"],
+        "nvcc_s": rep["nvcc_s"], "native_lib_s": res["native_lib_s"],
+        "kernels_lib_s": res["kernels_lib_s"],
+        "first_step_ms": res["device"]["step_ms"][0],
+        "second_step_ms": res["device"]["step_ms"][1]}) + f" ({smi})")
+    return cache
+
+
+def installed_main(inst, cache):
+    """(b): the main path at full width from the installed copy, both
+    pools, on (a)'s cache: nothing is rebuilt."""
+    res, rep = inst.child("b_main", "main", S_MAIN, cache)
+    if rep["gxx_s"] is not None or rep["nvcc_s"] is not None:
+        fail("installed copy (b): a library was rebuilt")
+    if min(rep["launches"][k] for k in INSTALL_LAUNCHES) < 1:
+        fail(f"installed copy (b): launches {rep['launches']}")
+    log(f"installed copy (b) main path, {S_MAIN} CIF + {S_QCIF} QCIF "
+        f"streams, device and host pools, sampled streams equal to the "
+        f"installed digests: " + json.dumps(
+            {k: {x: res[k][x] for x in ("frames_per_s", "step_ms",
+                                        "present_ms")}
+             for k in ("device", "host")}) + f"; peak {res['peak_gib']} GiB; "
+        f"launches {rep['launches']}")
+
+
+def installed_workers(inst):
+    """(e): N_WORKERS processes at once on one cold cache, as a service's
+    workers start: one build of each library among them, equal outputs,
+    no failure on the lock."""
+    cache = os.path.join(inst.work, "cache_e")
+    t0 = time.perf_counter()
+    outs = inst.wait([inst.start(
+        f"e_worker{k}", [sys.executable, "-c", INSTALL_CHILD, "worker",
+                         str(S_WORKER)], cache) for k in range(N_WORKERS)])
+    seconds = time.perf_counter() - t0
+    built = {k: sum(r[k] is not None for _, r, _ in outs.values())
+             for k in ("gxx_s", "nvcc_s")}
+    if built != {"gxx_s": 1, "nvcc_s": 1}:
+        fail(f"installed copy (e): builds {built}, not one of each")
+    _cache_holds_one_build(cache, "e")
+    results = [Installed.result(tag, out) for tag, (out, _, _) in outs.items()]
+    if len({r["device"]["digest"] for r in results}) != 1:
+        fail("installed copy (e): the workers' outputs differ")
+    if _tree_state(inst.prefix) != inst.pristine:
+        fail("installed copy (e): something was written under the prefix")
+    log(f"installed copy (e) {N_WORKERS} workers of {S_WORKER} CIF streams "
+        f"at once on a cold cache: one g++ and one nvcc build, equal "
+        f"outputs, every stream equal to the digests every frame; "
+        f"{seconds:.2f} s, first steps ms "
+        f"{[r['device']['step_ms'][0] for r in results]}")
+
+
+def installed_prebuilt(inst):
+    """(f): both libraries built into the package directory while it is
+    writable, then (b)'s device pool read-only, on an empty cache, with
+    compilers that fail: nothing is compiled or cached."""
+    cache = os.path.join(inst.work, "cache_f")
+    inst.read_only(False)
+    _, rep = inst.child("f_prebuild", "prebuild", S_MAIN, cache)
+    own = {k: os.path.join(inst.pkg, k, "build")
+           for k in ("native", "kernels")}
+    if (any(_lib_dir(rep, k) != own[k] for k in own)
+            or rep["gxx_s"] is None or rep["nvcc_s"] is None):
+        fail(f"installed copy (f): the prebuild went to {rep['native_lib']}, "
+             f"{rep['kernels_lib']}")
+    inst.read_only(True)
+    inst.pristine = _tree_state(inst.prefix)
+    res, rep = inst.child("f_prebuilt", "prebuilt", S_MAIN, cache,
+                          compilers=False)
+    if (rep["gxx_s"] is not None or rep["nvcc_s"] is not None
+            or os.path.exists(cache)
+            or any(_lib_dir(rep, k) != own[k] for k in own)):
+        fail(f"installed copy (f): the prebuilt image compiled or cached: "
+             f"{rep}")
+    log("installed copy (f) prebuilt image, read-only, empty cache, no "
+        "compiler: " + json.dumps({
+            "native_lib_s": res["native_lib_s"],
+            "kernels_lib_s": res["kernels_lib_s"],
+            "first_step_ms": res["device"]["step_ms"][0],
+            "second_step_ms": res["device"]["step_ms"][1]}))
+
+
+def installed_cli(inst, digests):
+    """(c) the console script's decode of the CIF fixture on the card,
+    every frame equal to ff_cif, and its selftest, with (d) the three
+    examples, all at once on the prebuilt libraries, read-only, with
+    compilers that fail."""
+    from h263_tpu_torch.testing.corpora import planes_digest
+
+    cache = os.path.join(inst.work, "cache_cd")
+    mod = [sys.executable, "-m"]
+    t0 = time.perf_counter()
+    outs = inst.wait([inst.start(tag, argv, cache, compilers=False)
+                      for tag, argv in (
+        ("c_decode", [inst.script, "decode", "ffmpeg_flv1_cif.flv", "-o",
+                      "out", "--fmt", "npz", "--device", "cuda"]),
+        ("c_selftest", [inst.script, "selftest"]),
+        ("d_decode_flv", mod + ["h263_tpu_torch.examples.decode_flv",
+                                "--selftest"]),
+        ("d_batched_streams", mod + [
+            "h263_tpu_torch.examples.batched_streams"]),
+        ("d_serving_pool", mod + ["h263_tpu_torch.examples.serving_pool"]))])
+    seconds = time.perf_counter() - t0
+    out, _, cwd = outs["c_decode"]
+    want = digests["ff_cif"]["planes"]
+    with np.load(os.path.join(cwd, "out", "frames.npz")) as z:
+        got = [planes_digest(*(z[f"{k}_{t:05d}"] for k in ("y", "cb", "cr")))
+               for t in range(len(want))]
+    if got != want or f"decoded {len(want)} frames" not in out:
+        fail(f"installed copy (c): the console script's frames differ from "
+             f"ff_cif ({out.strip()})")
+    if "selftest OK" not in outs["c_selftest"][0]:
+        fail("installed copy (c): selftest did not pass")
+    if os.path.exists(cache) or _tree_state(inst.prefix) != inst.pristine:
+        fail("installed copy (c, d): something was built or written")
+    log(f"installed copy (c) `{os.path.basename(inst.script)} decode` of the "
+        f"CIF fixture: {len(want)} frames equal to ff_cif; selftest OK; (d) "
+        f"the three examples exit 0; {seconds:.1f} s together")
+
+
+def phase_installed(torch, root, digests):
+    """Phase 17: the port as a user installs it.  A wheel of the checkout
+    (`pip wheel` in a copy of the tree), installed with `pip install
+    --prefix` into a temporary directory; every step runs in subprocesses
+    whose working directory is a temporary one and whose PYTHONPATH is the
+    install's site-packages and a directory holding only the hook
+    `INSTALL_HOOK`: (a) a cold start with the package directory read-only,
+    timing g++, nvcc and the first two steps of the device pool; (b) the
+    main path at full width, both pools, on (a)'s cache; (e) four workers
+    at once on a cold cache; (f) both libraries prebuilt into the package
+    directory, then (b)'s device pool read-only with an empty cache and no
+    compiler; (c) the console script's decode and selftest and (d) the
+    three examples, together, on the prebuilt libraries.  Returns the
+    launches summed over every subprocess."""
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="h263_installed_")
+    inst = None
+    try:
+        inst = Installed(root, work)
+        log(f"installed copy: wheel {inst.wheel_s:.1f} s, install "
+            f"{inst.install_s:.1f} s, at {inst.site}; read-only by "
+            f"{inst.read_only_how}")
+        inst.read_only(True)
+        inst.pristine = _tree_state(inst.prefix)
+        installed_main(inst, installed_cold(inst, smi))
+        installed_workers(inst)
+        installed_prebuilt(inst)
+        installed_cli(inst, digests)
+        totals, per = {}, {}
+        for tag, r in inst.done.items():
+            per[tag] = {k: n for k, n in r["launches"].items() if n}
+            for k, n in r["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+        log("installed copy launches: " + json.dumps(
+            {"per_subprocess": per, "total": totals}))
+        if min(totals.get(k, 0) for k in INSTALL_LAUNCHES) < 1:
+            fail("a kernel of the installed copy's path was not launched")
+        log(f"phase 17 done in {time.perf_counter() - t_phase:.1f} s "
+            f"({smi})")
+        return totals
+    finally:
+        if inst is not None and not inst.root_user:
+            _set_writable(inst.pkg, True)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def load_streams(root):
     """(streams: name -> (width, height, frames), the CIF fixture's golden
     luma, the reference digests) of every phase."""
@@ -4366,7 +4936,8 @@ def main() -> int:
             launches[k] += n
     single, resize_err = phase_single(torch, root, streams, digests, rng)
     for more in (single, phase_mesh(torch, streams, digests, rng),
-                 phase_fuzz(torch), phase_reference(torch, root, digests)):
+                 phase_fuzz(torch), phase_reference(torch, root, digests),
+                 phase_installed(torch, root, digests)):
         for k, n in more.items():
             launches[k] += n
     for r in records:

@@ -7,16 +7,19 @@ plain C interface, at first use, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
          -Xcompiler -fPIC -c csrc/<name>.cu         (one per source, in parallel)
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o \
-         kernels/build/libh263cuda_<hash>.so *.o
+         <build dir>/libh263cuda_<hash>.so *.o
 
 `-fmad=false` keeps nvcc from contracting a multiply and an add into one FMA
 (the IDCT must round every product, like the reference).  The library's name
 carries a hash of every source's content and the flags, so an edited source
-rebuilds.  Concurrent builders take an `fcntl` lock on `build/.lock`; the
-objects and the library are written into a temporary directory and the
-library is `os.replace`d into place.  There is no
-fallback: a missing nvcc or a failed build raises with the compiler's
-output.  Importing this module builds nothing.
+rebuilds.  The build directory follows the native library's rule
+(`native.pick_build_dir`): `kernels/build/` when it is writable, or when it
+already holds the library of the current sources (loaded read-only);
+otherwise `$XDG_CACHE_HOME/h263_tpu_torch/kernels`.  Concurrent builders
+take an `fcntl` lock on `.lock` there; the objects and the library are
+written into a temporary directory there and the library is `os.replace`d
+into place.  There is no fallback: a missing nvcc or a failed build raises
+with the compiler's output.  Importing this module builds nothing.
 
 Every launch goes through `launch`, which makes the tensors' card current
 around the call, and every event that guards a pinned buffer is recorded
@@ -36,6 +39,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+from ..native import pick_build_dir
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -99,6 +104,13 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def build_dir(library=None) -> Path:
+    """The directory that the library file `library` is built in or loaded
+    from (`native.pick_build_dir`); with None, a writable one for the
+    scratch builds of the tools beside this module."""
+    return pick_build_dir(BUILD, library, "kernels")
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -139,18 +151,19 @@ def build() -> Path:
     returns its path."""
     global last_build_seconds
 
-    digest = _digest()
-    so = BUILD / f"libh263cuda_{digest}.so"
+    name = f"libh263cuda_{_digest()}.so"
+    out = build_dir(name)
+    so = out / name
     if so.exists():
         return so
     nvcc = _nvcc()
-    BUILD.mkdir(parents=True, exist_ok=True)
-    with open(BUILD / ".lock", "w") as lockf:
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / ".lock", "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         if so.exists():              # built by another process meanwhile
             return so
         t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        with tempfile.TemporaryDirectory(dir=out) as tmp:
             tmp_so = Path(tmp) / so.name
             compiles, link = compile_commands(nvcc, Path(tmp), tmp_so)
             run_all(compiles)

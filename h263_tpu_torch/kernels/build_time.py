@@ -1,6 +1,7 @@
 """Time the kernel build: every source compiled one after another, then all
 at once as `build()` does (each followed by the link), into temporary
-directories under `kernels/build/`; prints one JSON line.  Needs nvcc.
+directories under `build_dir()` (`kernels/build/`, or the per-user cache
+when that is read-only); prints one JSON line.  Needs nvcc.
 
     python3 -m h263_tpu_torch.kernels.build_time
 """
@@ -13,15 +14,16 @@ import tempfile
 import time
 from pathlib import Path
 
-from . import BUILD, _nvcc, compile_commands, run_all
+from . import _nvcc, build_dir, compile_commands, run_all
 
 
 def main() -> int:
     nvcc = _nvcc()
-    BUILD.mkdir(parents=True, exist_ok=True)
+    work = build_dir()
+    work.mkdir(parents=True, exist_ok=True)
     out = {}
     for mode in ("one_by_one", "all_at_once", "one_by_one", "all_at_once"):
-        with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        with tempfile.TemporaryDirectory(dir=work) as tmp:
             compiles, link = compile_commands(nvcc, Path(tmp),
                                               Path(tmp) / "lib.so")
             t0 = time.perf_counter()

@@ -1,6 +1,7 @@
 """Print what ptxas says of every kernel: registers, shared memory, stack
 frame and spills (`nvcc -Xptxas -v`), one source after another with its
-compile time, into a temporary directory under `kernels/build/`.  Needs nvcc.
+compile time, into a temporary directory under `build_dir()` (`kernels/build/`,
+or the per-user cache when that is read-only).  Needs nvcc.
 
     python3 -m h263_tpu_torch.kernels.ptxas_report
 """
@@ -14,13 +15,14 @@ import tempfile
 import time
 from pathlib import Path
 
-from . import BUILD, _nvcc, compile_commands
+from . import _nvcc, build_dir, compile_commands
 
 
 def main() -> int:
     nvcc = _nvcc()
-    BUILD.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+    work = build_dir()
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
         compiles, _ = compile_commands(nvcc, Path(tmp), Path(tmp) / "lib.so")
         for cmd in compiles:
             t0 = time.perf_counter()

@@ -5,13 +5,19 @@ and bound with ctypes.  It holds the host entropy decoder (the dense parse
 and the fused batch parse of `bindings.py`) and the header prep of the
 device front-end (`DevicePrepBatch` below).
 
-The library goes to `native/build/libh263entropy_<hash>.so`, the hash taken
-over the sources and the compiler flags, so an edited source builds anew
-and a built one is never rebuilt.  Concurrent builders (test workers,
-processes of one host) take an `fcntl` lock on `build/.lock`, compile to a
-per-process temporary file and `os.replace` it into place, so no process
-ever loads a partly written library.  A failed build raises with g++'s
-output; there is no fallback.  Importing this module builds nothing.
+The library is `libh263entropy_<hash>.so`, the hash taken over the sources
+and the compiler flags, so an edited source builds anew and a built one is
+never rebuilt.  It goes where `pick_build_dir` says: `native/build/` when
+that is writable (a checkout, a user's own install); that directory
+read-only when it already holds the library of the current sources (an
+image built by one user and run by another); otherwise
+`$XDG_CACHE_HOME/h263_tpu_torch/native` (`~/.cache` by default), as for a
+read-only site-packages.  Concurrent builders (test workers, processes of
+one host) take an `fcntl` lock on `.lock` in the chosen directory, compile
+to a per-process temporary file there and `os.replace` it into place, so
+no process ever loads a partly written library.  A failed build raises
+with g++'s output; there is no fallback.  Importing this module builds
+nothing.
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -75,6 +83,36 @@ ABI_VERSION = 6
 
 _lock = threading.Lock()
 _lib = None
+last_build_seconds = None     # g++'s seconds, in the process that built
+
+
+def _writable(d: Path) -> bool:
+    """Whether `d` exists or can be made, and a file can be created in it."""
+    try:
+        d.mkdir(parents=True, exist_ok=True)
+        fd, probe = tempfile.mkstemp(prefix=".writable.", dir=d)
+        os.close(fd)
+        os.unlink(probe)
+        return True
+    except OSError:
+        return False
+
+
+def pick_build_dir(own: Path, library, cache: str) -> Path:
+    """Where a library of the port is built or loaded from: `own` (a
+    `build/` inside the package) when it is writable; `own` when it already
+    holds the file `library` (prebuilt, loaded read-only); otherwise
+    `$XDG_CACHE_HOME/h263_tpu_torch/<cache>`, `~/.cache` when the variable
+    is unset or empty.  With `library` None (a scratch build), `own` only
+    when it is writable.  The rule of the JAX package's
+    `bindings._pick_build_dir`, with the library named by its sources."""
+    if _writable(own):
+        return own
+    if library is not None and (own / library).exists():
+        return own
+    base = (os.environ.get("XDG_CACHE_HOME")
+            or os.path.join(os.path.expanduser("~"), ".cache"))
+    return Path(base) / "h263_tpu_torch" / cache
 
 
 def _library_path() -> Path:
@@ -83,12 +121,15 @@ def _library_path() -> Path:
     for p in (SRC, SRC.with_name("tables.h")):
         if p.exists():
             h.update(p.read_bytes())
-    return BUILD / f"libh263entropy_{h.hexdigest()[:16]}.so"
+    name = f"libh263entropy_{h.hexdigest()[:16]}.so"
+    return pick_build_dir(BUILD, name, "native") / name
 
 
 def build() -> Path:
     """Compile entropy.cpp unless the library for its current content
     exists; returns the library's path."""
+    global last_build_seconds
+
     so = _library_path()
     if so.exists():
         return so
@@ -96,13 +137,15 @@ def build() -> Path:
     if gxx is None:
         raise RuntimeError("g++ not found: the native host library of "
                            "h263_tpu_torch needs a C++ compiler")
-    BUILD.mkdir(parents=True, exist_ok=True)
-    with open(BUILD / ".lock", "w") as lockf:
+    build_dir = so.parent
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         if so.exists():           # built by another process meanwhile
             return so
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [gxx, *GXX_FLAGS, str(SRC), "-o", str(tmp)]
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -110,6 +153,7 @@ def build() -> Path:
                 f"g++ failed (rc {proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so)
+        last_build_seconds = time.perf_counter() - t0
     return so
 
 
