@@ -90,7 +90,11 @@ Phases (any failure ends the run with a nonzero exit, before the last line):
      and one lane in eight cut or byte-flipped in every P-frame: every
      step's automaton outputs (dense, MVs, INTER, status) equal its plain
      version on every lane, sampled lanes equal the reference digests
-     (planes every frame, RGBA); (b) BatchedStreamDecoder(1024, 352, 288,
+     (planes every frame, RGBA); the native standard header prep and the
+     per-stream Python body on the same steps' buffers (these lanes, then
+     clean s0-s15 lanes): equal payload, meta, first error and committed
+     header state every step, each one's host time printed; (b)
+     BatchedStreamDecoder(1024, 352, 288,
      DecoderOption.NONE) on the same bytes: each step with a failed lane
      raises the automaton's error class with nothing committed, then with
      the failed lanes masked every frame's planes and RGBA equal the device
@@ -2240,6 +2244,77 @@ def split_std_step(torch, dec, bufs, tag, n=3):
     return rows
 
 
+def std_prep_check(torch, lists, tag):
+    """The native standard header prep of one DeviceFrontendDecoder
+    (`_prepare_standard`) and the per-stream Python body (`_prepare_lane`
+    over every lane) of a twin on the same buffers, step by step over
+    `lists`: equal payload (through the spare word), meta, first error and
+    committed header state.  Returns the host ms of each per step."""
+    from h263_tpu_torch import DeviceFrontendDecoder
+    from h263_tpu_torch.types import DecoderOption
+    from h263_tpu_torch.utils import trace
+    from h263_tpu_torch.utils.checkpoint import picture_to_dict
+
+    def state(d):
+        return ([picture_to_dict(p) for p in d._pictures],
+                [int(r) for r in d._running], d._last_quant.tolist(),
+                d._last_deblock.tolist())
+
+    def err_of(e):
+        return None if e is None else (type(e).__name__, str(e))
+
+    fast, slow = (DeviceFrontendDecoder(S_MAIN, W, H, DecoderOption.NONE,
+                                        device=DEVICE) for _ in range(2))
+    sh, skip = fast._shards[0], fast._skip_frame_bytes()
+    times, punted = {"native": [], "python": []}, []
+    for t, bufs in enumerate(lists):
+        staged = [skip if b is None else b for b in bufs]
+        flat = np.zeros(sum(max(len(b), len(skip)) + 4 for b in staged) + 4,
+                        dtype=np.uint8)
+        meta = np.zeros((6, S_MAIN), dtype=np.int32)
+        before = trace.get_counters().get("std_python_header_lanes", 0)
+        t0 = time.perf_counter()
+        words, err = fast._prepare_standard(sh, bufs, staged, flat, meta)
+        t1 = time.perf_counter()
+        parts, woff, want_err = [], 0, None
+        want_meta = np.zeros((6, S_MAIN), dtype=np.int32)
+        for i, b in enumerate(bufs):
+            data, rows, e = slow._prepare_lane(i, b)
+            n = (len(data) + 3) // 4
+            parts.append(bytes(data) + b"\0" * (4 * n - len(data)))
+            want_meta[:4, i] = rows
+            want_meta[5, i] = woff
+            woff += n
+            if want_err is None:
+                want_err = e
+        want = b"".join(parts) + b"\0" * 4
+        t2 = time.perf_counter()
+        punted.append(trace.get_counters().get("std_python_header_lanes", 0)
+                      - before)
+        times["native"].append(round((t1 - t0) * 1e3, 3))
+        times["python"].append(round((t2 - t1) * 1e3, 3))
+        if flat[:4 * words + 4].tobytes() != want:
+            fail(f"standard prep ({tag}): step {t}'s native payload differs "
+                 f"from the per-stream Python body's")
+        if not np.array_equal(meta, want_meta):
+            bad = np.flatnonzero((meta != want_meta).any(axis=0))[:8]
+            fail(f"standard prep ({tag}): step {t}'s meta differs in lanes "
+                 f"{bad.tolist()}")
+        if err_of(err) != err_of(want_err):
+            fail(f"standard prep ({tag}): step {t} error {err_of(err)} != "
+                 f"{err_of(want_err)}")
+        if state(fast) != state(slow):
+            fail(f"standard prep ({tag}): step {t}'s committed header state "
+                 f"differs")
+    log(f"standard header prep ({tag}): {S_MAIN} CIF lanes x {len(lists)} "
+        f"steps, the native prep (one call, punts through the Python body) "
+        f"and the per-stream Python body on the same buffers: equal payload, "
+        f"meta, first error and committed header state every step; lanes "
+        f"handed back per step {punted}; host ms per step: native "
+        f"{times['native']}, Python body {times['python']}")
+    return times
+
+
 def phase_standard(torch, streams, digests):
     """Phase 12 (a) and (b): standard H.263 at S=1024 CIF through
     DeviceFrontendDecoder and BatchedStreamDecoder with DecoderOption.NONE.
@@ -2331,6 +2406,7 @@ def phase_standard(torch, streams, digests):
         f"reference digests every frame and in RGBA; launches "
         f"{launches['device']}; step ms {[round(s * 1e3, 2) for s in step_s]}")
     del rec_calls
+    std_prep_check(torch, lists, "u0, MQ, cut and flipped lanes")
 
     # (b) The host front-end on the same bytes.  Per step: first every lane
     # (MQ lanes masked: the native host parser does not refuse an MQ
@@ -2398,6 +2474,9 @@ def phase_standard(torch, streams, digests):
     clean = [[streams["u0"][2][t] if i < N_UMV_LANES else
               streams[f"s{(i // 8) % N_STD}"][2][t] for i in range(S_MAIN)]
              for t in range(GOP)]
+    std_prep_check(torch, [[streams[f"s{(i // 8) % N_STD}"][2][t]
+                            for i in range(S_MAIN)] for t in range(GOP)],
+                   "s0-s15")
     ddec = DeviceFrontendDecoder(S_MAIN, W, H, NONE, device=DEVICE)
     with AutomatonRecorder() as rec_calls:
         for bufs in clean:

@@ -1,9 +1,11 @@
-"""The port's native host library: `entropy.cpp`, a byte-for-byte copy of
+"""The port's native host library, built by g++ at first use from two
+sources and bound with ctypes: `entropy.cpp`, a byte-for-byte copy of
 `h263_tpu/native/entropy.cpp` with its VLC tables `tables.h` (written by
-`gen_tables.py` from the port's `vlc_tables.py`), built by g++ at first use
-and bound with ctypes.  It holds the host entropy decoder (the dense parse
-and the fused batch parse of `bindings.py`) and the header prep of the
-device front-end (`DevicePrepBatch` below).
+`gen_tables.py` from the port's `vlc_tables.py`), and `std_prep.cpp`, the
+port's own.  It holds the host entropy decoder (the dense parse and the
+fused batch parse of `bindings.py`) and the header prep of the device
+front-end: Sorenson (`DevicePrepBatch` below, entropy.cpp) and standard
+H.263 (`StandardPrepBatch`, std_prep.cpp).
 
 The library is `libh263entropy_<hash>.so`, the hash taken over the sources
 and the compiler flags, so an edited source builds anew and a built one is
@@ -36,6 +38,8 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "entropy.cpp"
+# The sources beside SRC compiled with it into the one library.
+EXTRA_SOURCES = ("std_prep.cpp",)
 BUILD = Path(__file__).resolve().parent / "build"
 # The JAX package's flags: the decoder is integer code, so they do not
 # change its results.
@@ -44,6 +48,7 @@ GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread"]
 # Error codes of entropy.cpp.
 E_EOF = -100
 E_INVALID_BITSTREAM = -10
+E_NEEDS_PYTHON = 100
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -55,6 +60,12 @@ SIGNATURES = {
     #  meta [6][n], hdr [n][8], rc [n])
     "h263_device_prepare_ragged": [_P, _P, _I32, _I32, _I32, _P,
                                    ctypes.c_int64, _P, _P, _P],
+    # (joined frames, offsets [n + 1], n, expected w, h, lane cap,
+    #  prev_fmt [n], prev_running [n], given [n], flat stage, stage bytes,
+    #  meta [6][n], hdr [n][10], rc [n])
+    "h263_device_prepare_standard_ragged": [
+        ctypes.c_char_p, _P, _I32, _I32, _I32, ctypes.c_int64, _P, _P, _P,
+        _P, ctypes.c_int64, _P, _P, _P],
     # (data, nbytes, start_bit, w, h, ptype, flags, version, quant, range x,
     #  range y, coeffs/class y, cb, cr, mvs, inter, pred_scratch, pack_pos,
     #  pack_val, pack_cap, pack_count, end_bit, mvs_slim, mv8, inter_bits,
@@ -115,10 +126,17 @@ def pick_build_dir(own: Path, library, cache: str) -> Path:
     return Path(base) / "h263_tpu_torch" / cache
 
 
+def sources() -> list:
+    """The sources compiled into the library: SRC and those of
+    EXTRA_SOURCES that lie beside it."""
+    extra = (SRC.with_name(name) for name in EXTRA_SOURCES)
+    return [SRC, *(p for p in extra if p.exists())]
+
+
 def _library_path() -> Path:
     h = hashlib.sha256()
     h.update(" ".join(GXX_FLAGS).encode())
-    for p in (SRC, SRC.with_name("tables.h")):
+    for p in (*sources(), SRC.with_name("tables.h")):
         if p.exists():
             h.update(p.read_bytes())
     name = f"libh263entropy_{h.hexdigest()[:16]}.so"
@@ -126,7 +144,7 @@ def _library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile entropy.cpp unless the library for its current content
+    """Compile the sources unless the library for their current content
     exists; returns the library's path."""
     global last_build_seconds
 
@@ -144,7 +162,7 @@ def build() -> Path:
         if so.exists():           # built by another process meanwhile
             return so
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [gxx, *GXX_FLAGS, str(SRC), "-o", str(tmp)]
+        cmd = [gxx, *GXX_FLAGS, *map(str, sources()), "-o", str(tmp)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -220,6 +238,62 @@ class DevicePrepBatch:
         return int(failed)
 
 
+class StandardPrepBatch:
+    """Batched standard H.263 (plain PTYPE) header parse + payload staging
+    for `n` lanes of one resolution, frames of at most `lane_cap` bytes:
+    one native call per step (std_prep.cpp).  Before each `prepare` the
+    caller fills `prev_fmt` (each lane's previous PTYPE format code: -1
+    none, -2 a header only the Python parser takes), `prev_running` (its
+    running options) and `given` (nonzero: stage the lane's buffer as it
+    is, with the meta rows 0-3 already in `meta`).  After it, `hdr` (int32
+    [n, 10]: TR, width, height, ptype, header options, quantizer, CPM,
+    PSBI, format code, running options) and `rc` (int32 [n]: 0 staged,
+    `E_NEEDS_PYTHON` handed back with nothing staged) hold each lane's
+    result, and `words` the payload's words."""
+
+    __slots__ = ("_n", "_w", "_h", "_cap", "_offsets", "hdr", "rc",
+                 "prev_fmt", "prev_running", "given", "words")
+
+    def __init__(self, n: int, width: int, height: int, lane_cap: int):
+        lib()
+        self._n, self._w, self._h, self._cap = n, width, height, lane_cap
+        self._offsets = np.zeros(n + 1, dtype=np.int64)
+        self.hdr = np.zeros((n, 10), dtype=np.int32)
+        self.rc = np.zeros(n, dtype=np.int32)
+        self.prev_fmt = np.full(n, -1, dtype=np.int32)
+        self.prev_running = np.zeros(n, dtype=np.uint32)
+        self.given = np.zeros(n, dtype=np.uint8)
+        self.words = 0
+
+    def prepare(self, buffers, stage: np.ndarray, meta: np.ndarray) -> int:
+        """Pack every staged lane's word-aligned payload back to back, in
+        lane order, into the flat uint8 `stage` (its size is the cap; the
+        bytes past the last lane are zeroed) and fill `meta` (int32 [6, n]:
+        start bit, nbits, quant0, ptype word, v1, word offset).  `buffers`
+        are `bytes`.  Returns the number of lanes handed back."""
+        n = self._n
+        if len(buffers) != n:
+            raise ValueError(f"expected {n} buffers, got {len(buffers)}")
+        if stage.dtype != np.uint8 or not stage.flags["C_CONTIGUOUS"]:
+            raise ValueError("stage must be a C-contiguous uint8 array")
+        if (meta.shape != (6, n) or meta.dtype != np.int32
+                or not meta.flags["C_CONTIGUOUS"]):
+            raise ValueError(f"meta must be C-contiguous int32 [6, {n}]")
+        lengths = np.fromiter(map(len, buffers), dtype=np.int64, count=n)
+        np.cumsum(lengths, out=self._offsets[1:])
+        punted = lib().h263_device_prepare_standard_ragged(
+            b"".join(buffers), self._offsets.ctypes.data, n, self._w,
+            self._h, self._cap, self.prev_fmt.ctypes.data,
+            self.prev_running.ctypes.data, self.given.ctypes.data,
+            stage.ctypes.data, stage.nbytes, meta.ctypes.data,
+            self.hdr.ctypes.data, self.rc.ctypes.data)
+        if punted < 0:
+            raise ValueError(f"the lanes' payload does not fit the stage's "
+                             f"{stage.nbytes} bytes")
+        self.words = int(np.sum((lengths + 3) // 4, where=self.rc == 0))
+        return int(punted)
+
+
 def __getattr__(name):
     # `bindings` imports `lib` from this package, so it is imported at
     # first use rather than here; this module also loads on its own, by
@@ -230,5 +304,5 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["DevicePrepBatch", "build", "ensure_built", "lib",
-           "parse_frame_native"]
+__all__ = ["DevicePrepBatch", "StandardPrepBatch", "build", "ensure_built",
+           "lib", "parse_frame_native", "sources"]

@@ -38,7 +38,7 @@ import ctypes
 
 import numpy as np
 
-from . import lib
+from . import E_NEEDS_PYTHON, lib
 from ..types import (
     BitstreamExhausted,
     DecoderOption,
@@ -55,6 +55,8 @@ from ..types import (
     Picture,
     PictureOption,
     PictureTypeCode,
+    SourceFormat,
+    SourceFormatKind,
     UncodedIFrameBlocks,
     UnimplementedDecoding,
 )
@@ -70,9 +72,6 @@ class NeedsPythonHeader(Exception):
     (PLUSPTYPE chain, PB frame, reserved or invalid format, malformed
     bits).  Nothing was committed; the caller replays through the exact
     Python header parser."""
-
-
-E_NEEDS_PYTHON = 100
 
 
 ERROR_MAP = {
@@ -322,6 +321,46 @@ def native_option_masks():
     mpp = np.zeros(1, dtype=np.uint32)
     lib().h263_option_masks(opp.ctypes.data, mpp.ctypes.data)
     return int(opp[0]), int(mpp[0])
+
+
+# Plain-PTYPE source format codes (H.263 table 2) and their kinds.
+STD_KIND_BY_BITS = {1: SourceFormatKind.SUB_QCIF,
+                    2: SourceFormatKind.QUARTER_CIF,
+                    3: SourceFormatKind.FULL_CIF,
+                    4: SourceFormatKind.FOUR_CIF,
+                    5: SourceFormatKind.SIXTEEN_CIF}
+STD_FMT_BITS = {k: b for b, k in STD_KIND_BY_BITS.items()}
+
+
+def std_prev_fmt(pic) -> int:
+    """The previous-format code the native plain-PTYPE parses take for a
+    stream whose last header is `pic`: -1 none, the PTYPE format code after
+    a plain-PTYPE header of a standard format, else -2 (the native call
+    hands the next header to the Python parser, for the reference's
+    format-change rule)."""
+    if pic is None:
+        return -1
+    if pic.has_plusptype or pic.format is None:
+        return -2
+    return STD_FMT_BITS.get(pic.format.kind, -2)
+
+
+def picture_from_std_row(row) -> Picture:
+    """The Picture of a native plain-PTYPE header row (TR, width, height,
+    ptype, header options, quantizer, CPM, PSBI, format code, running
+    options): the Python parser's for the same header, less its PEI bytes
+    (the native parse skips them)."""
+    return Picture(
+        version=None,
+        temporal_reference=int(row[0]),
+        format=SourceFormat.standard(STD_KIND_BY_BITS[int(row[8])]),
+        options=PictureOption(int(row[4])),
+        has_plusptype=False,
+        has_opptype=False,
+        picture_type=(PictureTypeCode.I_FRAME if row[3] == 0
+                      else PictureTypeCode.P_FRAME),
+        quantizer=int(row[5]),
+        multiplex_bitstream=int(row[7]) if row[6] else None)
 
 
 class StandardBatchParser:

@@ -99,6 +99,8 @@ from ..native.bindings import (
     StandardBatchParser,
     parse_frame_native,
     parse_frame_native_packed,
+    picture_from_std_row,
+    std_prev_fmt,
 )
 from ..ops.d24 import fused_sections
 from ..ops.deblock import QUANT_TO_STRENGTH
@@ -138,13 +140,6 @@ _PTYPES = (PictureTypeCode.I_FRAME, PictureTypeCode.P_FRAME,
            PictureTypeCode.DISPOSABLE_P_FRAME, PictureTypeCode.RESERVED)
 _FORMATS = {2: SourceFormatKind.FULL_CIF, 3: SourceFormatKind.QUARTER_CIF,
             4: SourceFormatKind.SUB_QCIF}
-# Plain-PTYPE source format codes (H.263 table 2) and their kinds.
-_STD_KIND_BY_BITS = {1: SourceFormatKind.SUB_QCIF,
-                     2: SourceFormatKind.QUARTER_CIF,
-                     3: SourceFormatKind.FULL_CIF,
-                     4: SourceFormatKind.FOUR_CIF,
-                     5: SourceFormatKind.SIXTEEN_CIF}
-_STD_FMT_BITS = {k: b for b, k in _STD_KIND_BY_BITS.items()}
 
 
 def _picture_from_fields(hdr) -> Picture:
@@ -466,10 +461,7 @@ class BatchedStreamDecoder:
         st.running_options = running
         if not self._sorenson:
             # Bookkeeping for the native standard parse's format rule.
-            bits = -2
-            if not pic.has_plusptype and pic.format is not None:
-                bits = _STD_FMT_BITS.get(pic.format.kind, -2)
-            self._std_prev_fmt[stream_idx] = bits
+            self._std_prev_fmt[stream_idx] = std_prev_fmt(pic)
 
     def reset_slot_state(self, slot: int,
                          running: Optional[PictureOption] = None) -> None:
@@ -618,20 +610,7 @@ class BatchedStreamDecoder:
             ent = pic_cache.get(key)
             if ent is None:
                 row = hdr[i]
-                pic = Picture(
-                    version=None,
-                    temporal_reference=int(row[0]),
-                    format=SourceFormat.standard(_STD_KIND_BY_BITS[
-                        int(row[8])]),
-                    options=PictureOption(int(row[4])),
-                    has_plusptype=False,
-                    has_opptype=False,
-                    picture_type=(PictureTypeCode.I_FRAME if row[3] == 0
-                                  else PictureTypeCode.P_FRAME),
-                    quantizer=int(row[5]),
-                    multiplex_bitstream=(int(row[7]) if row[6] else None),
-                )
-                ent = (pic, int(row[9]), int(row[8]))
+                ent = (picture_from_std_row(row), int(row[9]), int(row[8]))
                 pic_cache[key] = ent
             pic, running, fmt_bits = ent
             st.last_header = pic

@@ -9,13 +9,20 @@ payload only: the single-frame step and the K-frame window.  Per step:
 
 Sorenson streams take the native header prep (`native.DevicePrepBatch`,
 one call for every stream).  Standard H.263 streams (`DecoderOption.NONE`)
-take the JAX package's Python header loop: each stream's picture header
-parses against its last one, the running options carry forward
-(`_running`: a plain PTYPE keeps the UMV / MODIFIED_QUANTIZATION of an
-earlier OPPTYPE), and `parser.device_frontend.encode_ptype` ships them to
-the automaton in the ptype word; the loop packs the same ragged layout.
-As in the JAX package, a standard decoder has no window (`decode_steps`
-raises), since its headers chain from frame to frame on the host.
+take the native standard prep (`native.StandardPrepBatch`, one call for
+every stream): each plain-PTYPE picture header parses against the
+stream's last one, the running options carry forward (`_running`: a
+plain PTYPE keeps the UMV / MODIFIED_QUANTIZATION of an earlier
+OPPTYPE) into the automaton's ptype word (`encode_ptype`'s bits), and
+the frames pack the same ragged layout.  A lane the native call hands
+back (a PLUSPTYPE or PB header, a format change, a header after one only
+Python parses, PEI bytes, any error, a frame over the cap, other dims)
+takes the JAX package's Python loop body for that stream alone
+(`_prepare_lane`), in stream order, and the native call then stages it
+as given; the native lanes commit their `Picture`s through a cache keyed
+by the header row.  As in the JAX package, a standard decoder has no
+window (`decode_steps` raises), since its headers chain from frame to
+frame on the host.
 
 A window (`decode_steps`) of T frames per stream stages all T frames into
 one buffer and makes one copy and one automaton launch over T*S lanes, then
@@ -56,6 +63,8 @@ names at its places: `host_parse`, `transfer`, `reconstruct_dispatch`,
 
 from __future__ import annotations
 
+import operator
+from itertools import repeat
 from typing import Optional, Sequence
 
 import numpy as np
@@ -64,7 +73,8 @@ import torch
 from .. import kernels
 from ..bitio import BitReader
 from ..decoder.reconstruct import PresentParams
-from ..native import DevicePrepBatch
+from ..native import DevicePrepBatch, StandardPrepBatch
+from ..native.bindings import picture_from_std_row, std_prev_fmt
 from ..ops.deblock import QUANT_TO_STRENGTH
 from ..parser.device_frontend import encode_ptype
 from ..parser.picture import decode_picture
@@ -89,19 +99,23 @@ from .sharding import (
     shard_present_fn,
 )
 
+# Distinct header rows whose Picture a decoder keeps before starting over.
+_PIC_CACHE_MAX = 1 << 16
+
 
 class _Shard:
     """One device's share of a decoder's streams, lanes [lo, hi): the
-    Sorenson header prep over them, the ping-pong staging pair (flat
-    payload bytes with one spare zero word, so the payload is never empty;
-    meta [T, 6, n], T = 1 until a window), the event of each buffer's last
-    copy, and the presentation params."""
+    header prep over them (Sorenson or standard), the ping-pong staging
+    pair (flat payload bytes with one spare zero word, so the payload is
+    never empty; meta [T, 6, n], T = 1 until a window), the event of each
+    buffer's last copy, and the presentation params."""
 
     def __init__(self, dec, device, lo, hi):
         n = hi - lo
         self.device, self.lo, self.hi = device, lo, hi
         self.prep = (DevicePrepBatch(n, dec.w, dec.h) if dec._sorenson
-                     else None)
+                     else StandardPrepBatch(n, dec.w, dec.h,
+                                            dec.max_frame_bytes))
         self.pin = device.type == "cuda"
         self.stage = [torch.zeros(n * dec.max_frame_bytes + 4,
                                   dtype=torch.uint8, pin_memory=self.pin)
@@ -178,14 +192,21 @@ class DeviceFrontendDecoder:
         self.cw, self.ch = (width + 1) // 2, (height + 1) // 2
         self.mb_w, self.mb_h = -(-width // 16), -(-height // 16)
         self.max_frame_bytes = (((max_frame_bytes or 8192) + 3) // 4) * 4
-        # The native prep parses Sorenson headers (each shard's over its
-        # lanes); standard ones take the Python loop of `_prepare_standard`.
+        # The native prep parses the headers, each shard's over its lanes.
         self._shards = [_Shard(self, dev, lo, hi) for dev, (lo, hi) in zip(
             self._mesh.devices, self._mesh.shard_ranges(n_streams))]
         # Per-stream header state of a standard stream: its last picture
         # header and the running options it carries (state.rs:147-155).
         self._pictures = [None] * n_streams
         self._running = [PictureOption.NONE] * n_streams
+        # header row bytes -> (Picture, running options) of native lanes.
+        self._pic_cache: dict = {}
+        # The native prep's previous-format code of each stream
+        # (`std_prev_fmt` of its last header) and the header it was taken
+        # from, taken anew where another writer (the pool, a checkpoint,
+        # the Python lane body) replaced the stream's `_pictures` entry.
+        self._fmt_bits = np.full(n_streams, -1, dtype=np.int32)
+        self._fmt_of = [None] * n_streams
 
         def planes(h, w):
             return self._join(StreamShards([
@@ -256,61 +277,109 @@ class DeviceFrontendDecoder:
         np.copyto(self._last_deblock[sh.lo:sh.hi], hdr[:, 5] != 0,
                   where=commit)
 
-    def _prepare_standard(self, buffers, lo: int, hi: int):
-        """The standard header prep of streams [lo, hi), the JAX package's
-        Python loop: per stream, the picture header against the stream's
-        last one, the dims check (an inherited format passes), the carried
-        running options, and on success the header state and presentation
-        params committed (present lanes only).  A stream that fails (over
-        the cap, a header error) stages the skip frame with no options, and
-        the first error is returned.  Returns (the payload: each stream's
-        bytes padded to whole words, back to back; meta int32 [6, hi - lo];
-        first error)."""
-        cap, skip = self.max_frame_bytes, self._skip_frame_bytes()
-        meta = np.zeros((6, hi - lo), dtype=np.int32)
-        parts, woff = [], 0
-        first_err: Optional[Exception] = None
-        for i in range(lo, hi):
-            buf = buffers[i]
-            absent = buf is None
-            if absent:
-                buf = skip
-            running = None  # set when the real header parses
-            try:
-                if len(buf) > cap:
-                    raise H263Error(f"frame exceeds transfer bucket "
-                                    f"({len(buf)} > {cap} bytes)")
-                r = BitReader(bytes(buf))
-                pic = decode_picture(r, self.decoder_options,
-                                     self._pictures[i])
-                if pic is None:
-                    raise H263Error("outside device front-end scope")
-                fmt = pic.format.width_and_height() if pic.format else None
-                if fmt is not None and fmt != (self.w, self.h):
-                    raise H263Error(f"stream {i} resolution {fmt} != bucket "
-                                    f"({self.w}, {self.h})")
-                # The MB layer runs under the CARRIED options, which
-                # encode_ptype ships to the automaton.
-                running = carry_forward_options(pic, self._running[i])
-                if not absent:
-                    self._pictures[i] = pic
-                    self._running[i] = running
-                    self._last_quant[i] = pic.quantizer
-                    self._last_deblock[i] = bool(
-                        pic.options & PictureOption.USE_DEBLOCKER)
-            except H263Error as e:
+    def _prepare_lane(self, i: int, buf):
+        """The Python header prep of stream `i`, the JAX package's loop
+        body, for a lane the native prep hands back: the picture header
+        against the stream's last one, the dims check (an inherited format
+        passes), the carried running options, and on success the header
+        state and presentation params committed (a present lane only).  A
+        stream that fails (over the cap, a header error) stages the skip
+        frame with no options.  Returns (the bytes to stage, meta rows 0-3:
+        start bit, nbits, quant0, ptype word; the error or None)."""
+        skip = self._skip_frame_bytes()
+        absent = buf is None
+        if absent:
+            buf = skip
+        err = None
+        try:
+            if len(buf) > self.max_frame_bytes:
+                raise H263Error(f"frame exceeds transfer bucket "
+                                f"({len(buf)} > {self.max_frame_bytes} "
+                                f"bytes)")
+            r = BitReader(bytes(buf))
+            pic = decode_picture(r, self.decoder_options, self._pictures[i])
+            if pic is None:
+                raise H263Error("outside device front-end scope")
+            fmt = pic.format.width_and_height() if pic.format else None
+            if fmt is not None and fmt != (self.w, self.h):
+                raise H263Error(f"stream {i} resolution {fmt} != bucket "
+                                f"({self.w}, {self.h})")
+            # The MB layer runs under the CARRIED options, which
+            # encode_ptype ships to the automaton.
+            running = carry_forward_options(pic, self._running[i])
+            if not absent:
+                self._pictures[i] = pic
+                self._running[i] = running
+                self._last_quant[i] = pic.quantizer
+                self._last_deblock[i] = bool(
+                    pic.options & PictureOption.USE_DEBLOCKER)
+        except H263Error as e:
+            err = e
+            r = BitReader(skip)
+            pic = decode_picture(r, self.decoder_options, None)
+            running = None  # the skip frame carries no options
+        return r.data, (r.pos, 8 * len(r.data), pic.quantizer,
+                        encode_ptype(pic, running)), err
+
+    def _prepare_standard(self, sh, buffers, bufs, flat, meta):
+        """The standard header prep of shard `sh`'s streams into the flat
+        uint8 `flat` and `meta` (int32 [6, n]): one native call over the
+        lanes (`bufs`: the shard's `buffers` as bytes, the skip frame for
+        None), then the lanes it hands back through `_prepare_lane` in
+        stream order and a second call that stages them as given; the
+        native lanes' header state and presentation params are committed
+        (present lanes only), their Pictures cached per header row.
+        Returns (the payload's words, the first error or None)."""
+        lo, hi = sh.lo, sh.hi
+        prep = sh.prep
+        pics = self._pictures[lo:hi]
+        if any(map(operator.is_not, pics, self._fmt_of[lo:hi])):
+            for k, pic in enumerate(pics):
+                if pic is not self._fmt_of[lo + k]:
+                    self._fmt_bits[lo + k] = std_prev_fmt(pic)
+                    self._fmt_of[lo + k] = pic
+        prep.prev_fmt[:] = self._fmt_bits[lo:hi]
+        if self.decoder_options & DecoderOption.USE_SCALABILITY_MODE:
+            prep.prev_fmt[:] = -2   # a header layout the native parse lacks
+        prep.prev_running[:] = np.fromiter(self._running[lo:hi],
+                                           dtype=np.uint32, count=hi - lo)
+        prep.given[:] = 0
+        first_err = None
+        punted = prep.prepare(bufs, flat, meta)
+        native = prep.rc == 0
+        if punted:
+            incr("std_python_header_lanes", punted)
+            bufs = list(bufs)
+            for k in np.flatnonzero(~native).tolist():
+                bufs[k], meta[:4, k], err = self._prepare_lane(
+                    lo + k, buffers[lo + k])
                 if first_err is None:
-                    first_err = e
-                r = BitReader(skip)
-                pic = decode_picture(r, self.decoder_options, None)
-                running = None  # the skip frame carries no options
-            data = r.data
-            words = (len(data) + 3) // 4
-            parts.append(bytes(data) + b"\0" * (4 * words - len(data)))
-            meta[:, i - lo] = (r.pos, 8 * len(data), pic.quantizer,
-                               encode_ptype(pic, running), 0, woff)
-            woff += words
-        return b"".join(parts), meta, first_err
+                    first_err = err
+                prep.given[k] = 1
+            prep.prepare(bufs, flat, meta)
+        commit = native & np.fromiter(
+            map(operator.is_not, buffers[lo:hi], repeat(None)), dtype=bool,
+            count=hi - lo)
+        hdr = prep.hdr
+        np.copyto(self._last_quant[lo:hi], hdr[:, 5], where=commit)
+        np.copyto(self._last_deblock[lo:hi],
+                  (hdr[:, 4] & int(PictureOption.USE_DEBLOCKER)) != 0,
+                  where=commit)
+        np.copyto(self._fmt_bits[lo:hi], hdr[:, 8], where=commit)
+        rows, cache = hdr.tobytes(), self._pic_cache
+        step = hdr.shape[1] * hdr.itemsize
+        keys = [rows[j:j + step] for j in range(0, len(rows), step)]
+        ents = list(map(cache.get, keys))
+        for k in np.flatnonzero(commit).tolist():
+            ent = ents[k] or cache.get(keys[k])  # or made for a lane before
+            if ent is None:
+                if len(cache) >= _PIC_CACHE_MAX:
+                    cache.clear()
+                ent = cache[keys[k]] = (picture_from_std_row(hdr[k]),
+                                        PictureOption(int(hdr[k, 9])))
+            self._pictures[lo + k] = self._fmt_of[lo + k] = ent[0]
+            self._running[lo + k] = ent[1]
+        return prep.words, first_err
 
     def _staged(self, buffers):
         """The buffers as the prep takes them: the skip frame for None, an
@@ -332,15 +401,23 @@ class DeviceFrontendDecoder:
         cap = self.max_frame_bytes
         first_err: Optional[Exception] = None
         if not self._sorenson:
-            with trace_stage("host_parse"):
-                payload, meta_np, first_err = self._prepare_standard(
-                    buffers, sh.lo, sh.hi)
-            stage, meta = sh.next_stage(len(payload) + 4, 1, cap)
-            flat = stage.numpy().reshape(-1)
-            flat[:len(payload)] = np.frombuffer(payload, dtype=np.uint8)
-            flat[len(payload):] = 0
+            skip = self._skip_frame_bytes()
+            bufs = [skip if b is None else b if type(b) is bytes
+                    else bytes(b) for b in buffers[sh.lo:sh.hi]]
+            # Room for each lane's own bytes or the skip frame, whichever
+            # it stages, and the spare word.
+            lens = np.fromiter(map(len, bufs), dtype=np.int64,
+                               count=len(bufs))
+            wskip = (len(skip) + 3) // 4 * 4
+            room = np.where(lens <= cap, np.maximum((lens + 3) // 4 * 4,
+                                                    wskip), wskip)
+            stage, meta = sh.next_stage(int(room.sum()) + 4, 1, cap)
             meta = meta[0]
-            meta.numpy()[:] = meta_np
+            with trace_stage("host_parse"):
+                words, first_err = self._prepare_standard(
+                    sh, buffers, bufs, stage.numpy().reshape(-1),
+                    meta.numpy())
+            stage = stage[:words + 1]
         else:
             mine = buffers[sh.lo:sh.hi]
             bufs = self._staged(mine)

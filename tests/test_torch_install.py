@@ -95,6 +95,7 @@ def installed(wheel, tmp_path_factory):
 
 def test_the_runtime_files_are_the_expected_ones():
     for rel in ("h263_tpu_torch/native/entropy.cpp",
+                "h263_tpu_torch/native/std_prep.cpp",
                 "h263_tpu_torch/native/tables.h",
                 "h263_tpu_torch/testdata/reference_digests.json",
                 "h263_tpu_torch/kernels/present_sweep.cu",
@@ -109,6 +110,25 @@ def test_wheel_ships_the_file_byte_equal(wheel, rel):
     with zipfile.ZipFile(wheel) as z:
         assert rel in z.namelist(), f"{rel} is not in {wheel.name}"
         assert z.read(rel) == (ROOT / rel).read_bytes()
+
+
+def test_library_name_follows_every_source(monkeypatch, tmp_path):
+    """The native library is built from entropy.cpp and std_prep.cpp
+    beside it, and named by both: an edit to std_prep.cpp names a new
+    library in the same directory."""
+    assert native.sources() == [PORT / "native" / "entropy.cpp",
+                                PORT / "native" / "std_prep.cpp"]
+    for name in ("entropy.cpp", "std_prep.cpp", "tables.h"):
+        shutil.copy(PORT / "native" / name, tmp_path / name)
+    monkeypatch.setattr(native, "SRC", tmp_path / "entropy.cpp")
+    monkeypatch.setattr(native, "BUILD", tmp_path / "build")
+    assert native.sources() == [tmp_path / "entropy.cpp",
+                                tmp_path / "std_prep.cpp"]
+    before = native._library_path()
+    with open(tmp_path / "std_prep.cpp", "a") as f:
+        f.write("// edited\n")
+    after = native._library_path()
+    assert before != after and before.parent == after.parent
 
 
 # -- the build directories -----------------------------------------------------
