@@ -40,6 +40,7 @@ from h263_tpu_torch.ops.d24 import (  # noqa: E402
     unpack_fused,
 )
 from h263_tpu_torch.testing.corpora import d24_rows  # noqa: E402
+from test_torch_reference_native import require_reference_native  # noqa: E402
 
 HERE = pathlib.Path(__file__).resolve().parent
 SIZES = [(48, 32), (176, 144), (177, 145)]
@@ -56,7 +57,7 @@ def _jax_dense(rows, mbh, mbw):
 def _parser_rows(w, h, mv_stride, seed, n_streams=3, n_frames=6):
     """Fused rows the JAX package's native parse writes for fuzzed GOPs:
     [(rows uint8 [n, used bytes], mvs int16, inter uint8)] per frame."""
-    assert jnative.ensure_built()
+    require_reference_native()
     rng = np.random.default_rng(seed)
     gops = [_rand_fused_gop(rng, w, h, n_frames) for _ in range(n_streams)]
     mbw, mbh = -(-w // 16), -(-h // 16)

@@ -47,6 +47,7 @@ from h263_tpu_torch.parser.frame import parse_frame_auto  # noqa: E402
 from h263_tpu_torch.parser.picture import decode_picture  # noqa: E402
 from h263_tpu_torch.testing import corpora as C  # noqa: E402
 from h263_tpu_torch.types import H263Error  # noqa: E402
+from test_torch_reference_native import require_reference_native  # noqa: E402
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 SOR = JOpt.SORENSON_SPARK_BITSTREAM
@@ -307,7 +308,11 @@ def _equal_planes(a, b, tag):
 def decode_side_by_side(frames, opts, rgba, backends=("numpy", "jax")):
     """Decode `frames` with the port on the CPU and the JAX decoder of
     each backend; hold outcomes, reader positions, state and RGBA equal.
-    Returns the port's decoder and the number of frames decoded."""
+    Returns the port's decoder and the number of frames decoded.
+
+    The JAX side parses with its native front-end, the JAX package's
+    default, which the port follows."""
+    require_reference_native()
     jdecs = [JaxDecoder(opts, backend=b) for b in backends]
     port = H263Decoder(DecoderOption(int(opts)), device="cpu")
     decoded = 0

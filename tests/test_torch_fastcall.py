@@ -26,6 +26,7 @@ from h263_tpu.native import bindings as jn
 from h263_tpu_torch import native
 from h263_tpu_torch.ops.d24 import fused_sections
 from h263_tpu_torch.testing import corpora
+from test_torch_reference_native import require_reference_native
 
 QCIF = corpora.QCIF
 
@@ -81,11 +82,6 @@ def test_gather_ptrs_refuses_a_buffer_that_is_not_bytes(kind):
 
 # -- the three call sites against the JAX package's ---------------------------
 
-def _jax_built():
-    assert jn.ensure_built()
-    assert jn._fastcall is not None, "the JAX package built no fastcall"
-
-
 def _prep(mod, bufs, w, h, cap):
     n = len(bufs)
     prep = (mod.DevicePrepBatch(n, w, h, cap) if mod is jn
@@ -101,7 +97,7 @@ def _prep(mod, bufs, w, h, cap):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("n", [1, 7, 64])
 def test_prepare_ragged_equals_the_jax_package(seed, n):
-    _jax_built()
+    require_reference_native()
     bufs = _seeded_buffers(np.random.default_rng([seed, n]), n)
     cap = sum((len(b) + 3) // 4 * 4 for b in bufs) + 4
     got = _prep(native, bufs, *QCIF, cap)
@@ -136,7 +132,7 @@ def _outcome(fn):
 def test_fused_parse_equals_the_jax_package(seed):
     """A GOP of seeded QCIF corpora on 16 lanes, step by step; seed 3 cuts
     one lane of one step, which both raise on, naming the same stream."""
-    _jax_built()
+    require_reference_native()
     rng = np.random.default_rng(seed)
     gops = [corpora.qcif_corpus(int(k)) for k in rng.integers(0, 4, 16)]
     cap = 2048
@@ -178,7 +174,7 @@ def test_standard_parse_equals_the_jax_package(seed):
     """A GOP of the standard QCIF corpus on 8 lanes at seeded phases of
     the GOP's P-frames, the I-frame first; seed 2 gives one lane a
     PLUSPTYPE picture, which both hand to the Python parser."""
-    _jax_built()
+    require_reference_native()
     rng = np.random.default_rng(seed)
     gop = corpora.std_qcif_corpus()
     cap = 2048
@@ -229,7 +225,7 @@ def test_each_call_site_refuses_a_buffer_that_is_not_bytes(site, kind):
 def test_the_module_is_the_ports_beside_the_jax_packages():
     """Both packages' modules load into one process, each under its own
     name and from its own file."""
-    _jax_built()
+    require_reference_native()
     mod = native.fastcall()
     assert mod.__name__ == native.FASTCALL_MODULE == "h263_torch_fastcall"
     assert jn._fastcall.__name__ == "h263_fastcall"

@@ -31,6 +31,7 @@ from h263_tpu_torch.ops.d24 import fused_sections
 from h263_tpu_torch.parser.picture import decode_picture
 from h263_tpu_torch.testing.encoder import MBSpec, encode_sorenson_picture
 from h263_tpu_torch.types import DecoderOption, PictureOption, PictureTypeCode
+from test_torch_reference_native import require_reference_native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOR = DecoderOption.SORENSON_SPARK_BITSTREAM
@@ -58,7 +59,7 @@ class _Pair:
     """The JAX and the port's fused batch parsers over like buffers."""
 
     def __init__(self, n, w, h, stride, cap=None):
-        assert jn.ensure_built()
+        require_reference_native()
         mbw, mbh = -(-w // 16), -(-h // 16)
         self.nmb = nmb = mbw * mbh
         self.cap = cap = cap or 16 * nmb
@@ -191,7 +192,7 @@ _FIELDS = ("coeffs_y", "class_y", "coeffs_cb", "class_cb", "coeffs_cr",
 
 @pytest.mark.parametrize("flavor", ["sorenson", "standard"])
 def test_dense_parse_matches_jax(flavor):
-    assert jn.ensure_built()
+    require_reference_native()
     w, h = (96, 80) if flavor == "sorenson" else (128, 96)
     opts = SOR if flavor == "sorenson" else DecoderOption.NONE
     rng = np.random.default_rng(17 if flavor == "sorenson" else 18)
